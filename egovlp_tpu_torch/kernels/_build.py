@@ -1,0 +1,92 @@
+"""Build and load the hand-written CUDA kernels (``kernels/csrc``).
+
+The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``.  The library
+goes to ``build/egovlp_kernels/`` under the repository root, named by a
+hash of the sources and flags, so a changed source is rebuilt and an
+unchanged one is loaded as it is.  Nothing is built when this module is
+imported: ``load_library()`` builds at first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "egovlp_kernels"
+SOURCES = ("space_attention_fwd.cu", "time_attention_fwd.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "egovlp_space_attention_fwd": ([_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I),
+    "egovlp_time_attention_fwd": ([_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I),
+    "egovlp_cuda_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else PATH."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(pathlib.Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(pathlib.Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                           "to build the CUDA kernels")
+    return found
+
+
+def library_path(nvcc: str) -> pathlib.Path:
+    h = hashlib.sha256()
+    for name in sorted(p.name for p in CSRC.iterdir()):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc.encode())
+    return BUILD_DIR / f"libegovlp_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build(nvcc: str, out: pathlib.Path) -> None:
+    """Compile every source into ``out`` (written atomically)."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build the kernels if needed and load them, with every C signature
+    declared (pointers and the stream as ``c_void_p``)."""
+    nvcc = find_nvcc()
+    path = library_path(nvcc)
+    if not path.exists():
+        build(nvcc, path)
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib

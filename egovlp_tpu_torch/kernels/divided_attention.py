@@ -1,0 +1,72 @@
+"""Divided space-time attention with the CLS token carried separately.
+
+Counterpart of ``egovlp_tpu/kernels/divided_attention.py``
+(``divided_attention_parts`` :300, ``_cls_row_parts`` :156), on the
+tower's ``(cls [B, 1, D], grid [B, f, n, D])`` pair.  The CLS query
+attends over all keys, CLS key first, in plain torch, as the JAX package
+does outside its kernels; the patch queries go through the grouped
+kernels of ``cuda_attention``:
+
+* ``axis='space'``: each frame's n patches attend over [CLS; that frame];
+* ``axis='time'``: each patch column's f frames attend over [CLS; column].
+"""
+
+from __future__ import annotations
+
+import torch
+
+from egovlp_tpu_torch.kernels.cuda_attention import (
+    space_attention_fwd,
+    space_attention_fwd_plain,
+    time_attention_fwd,
+    time_attention_fwd_plain,
+)
+
+# (axis, impl) -> grouped op; 'pallas' is the kernel wrapper (hand CUDA
+# kernel on a CUDA tensor, its plain twin on a CPU tensor), 'xla' the twin
+_GROUPED = {
+    ("space", "pallas"): space_attention_fwd,
+    ("space", "xla"): space_attention_fwd_plain,
+    ("time", "pallas"): time_attention_fwd,
+    ("time", "xla"): time_attention_fwd_plain,
+}
+
+
+def _cls_row_parts(qc, kc, vc, kp, vp, heads: int, scale: float):
+    """CLS-query full-attention row: ``[B, 1, D]`` over [CLS; all patches].
+
+    Logits and softmax in float32, probabilities rounded to the activation
+    dtype before the value sum (as the JAX op does)."""
+    B, D = kp.shape[0], kp.shape[-1]
+    hd = D // heads
+    dt = kp.dtype
+    q3c = (qc.reshape(B, heads, hd) * scale).float()
+    k4 = kp.reshape(B, -1, heads, hd).float()
+    v4 = vp.reshape(B, -1, heads, hd).float()
+    lg_c = (q3c * kc.reshape(B, heads, hd).float()).sum(-1, keepdim=True)
+    lg_p = torch.einsum("bhd,bshd->bhs", q3c, k4)
+    pr = torch.softmax(torch.cat([lg_c, lg_p], dim=-1), dim=-1).to(dt).float()
+    oc = torch.einsum("bhs,bshd->bhd", pr[:, :, 1:], v4)
+    oc = oc + pr[:, :, :1] * vc.reshape(B, heads, hd).float()
+    return oc.reshape(B, 1, D).to(dt)
+
+
+def divided_attention_parts(qc, kc, vc, qp, kp, vp, *, heads: int,
+                            axis: str, impl: str = "pallas"):
+    """Divided attention on the pair layout.
+
+    Args:
+      qc, kc, vc: ``[B, 1, D]`` CLS projections.
+      qp, kp, vp: ``[B, f, n, D]`` patch projections (the grid layout).
+      axis: ``'space'`` or ``'time'``.
+      impl: ``'pallas'`` (kernel wrappers) or ``'xla'`` (plain torch).
+
+    Returns ``(cls_out [B, 1, D], out_p [B, f, n, D])``.
+    """
+    if (axis, impl) not in _GROUPED:
+        raise ValueError(f"axis must be 'space'/'time' and impl "
+                         f"'pallas'/'xla'; got {axis!r}, {impl!r}")
+    scale = float(qp.shape[-1] // heads) ** -0.5
+    cls_out = _cls_row_parts(qc, kc, vc, kp, vp, heads, scale)
+    out_p = _GROUPED[axis, impl](qp, kp, vp, kc, vc, heads=heads, scale=scale)
+    return cls_out, out_p
