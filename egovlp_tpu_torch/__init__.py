@@ -3,15 +3,14 @@
 The port of ``egovlp_tpu`` (the JAX/Pallas package, kept beside it as the
 reference).  Module paths and class/function names mirror the JAX
 package so each counterpart is easy to find.  This package imports torch
-and numpy, never jax or flax; of the JAX package it uses only the
-framework-free ``egovlp_tpu.data.text`` tokenizer and
-``egovlp_tpu.data.readers`` decoder front end.
+and numpy, never jax, flax or any module of the JAX package.
 
 Covered so far: the embedding service (``serving.py``, ``cli/serve.py``)
-on the full dual encoder, forward only.  The divided space- and
-time-attention of every video block runs through hand-written CUDA
-kernels (``kernels/csrc``) on a CUDA device and through their plain
-PyTorch twins on the CPU.
+and EgoClip training (``train/``: the EgoNCE step, AdamW with step-LR,
+the epoch loop and torch-pickle checkpoints) on the full dual encoder.
+The divided space- and time-attention of every video block runs forward
+and backward through hand-written CUDA kernels (``kernels/csrc``) on a
+CUDA device and through their plain PyTorch twins on the CPU.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

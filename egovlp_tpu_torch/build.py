@@ -1,9 +1,11 @@
 """Construct the model and tokenizer from a task config.
 
-Counterpart of ``egovlp_tpu/train/build.py`` for the serving slice:
-``build_model_config`` (the same ``arch.args`` schema), ``build_model``,
-``init_params`` with an explicit ``torch.Generator``, ``load_pretrained``
-(torch ``.pth`` files only) and ``build_tokenizer``.
+Counterpart of ``egovlp_tpu/train/build.py`` for the model and the
+tokenizer: ``build_model_config`` (the same ``arch.args`` schema, with
+``drop_path_rate`` and ``remat``), ``build_model``, ``init_params`` with an
+explicit ``torch.Generator``, ``load_pretrained`` (torch ``.pth`` files
+only) and ``build_tokenizer``.  The datasets and loaders wait for the
+EgoClip slice.
 """
 
 from __future__ import annotations
@@ -15,8 +17,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from egovlp_tpu.data.text import WordPieceTokenizer
 from egovlp_tpu_torch.core.precision import Linear, compute_dtype
+from egovlp_tpu_torch.data.text import WordPieceTokenizer
 from egovlp_tpu_torch.io.config import Config
 from egovlp_tpu_torch.kernels.fused_ln import FusedLayerNorm
 from egovlp_tpu_torch.models.convert import load_pth, load_torch_weights
@@ -43,6 +45,8 @@ def build_model_config(arch: Dict[str, Any]) -> DualEncoderConfig:
         depth=int(vp.get("depth", 12)),
         num_heads=int(vp.get("num_heads", 12)),
         attention_impl=vp.get("attention_impl", "auto"),
+        drop_path_rate=float(vp.get("drop_path_rate", 0.0)),
+        remat=vp.get("remat", False),
     )
     text = TextTowerConfig(
         vocab_size=int(tp.get("vocab_size", 30522)),

@@ -21,15 +21,21 @@ import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "egovlp_kernels"
-SOURCES = ("space_attention_fwd.cu", "time_attention_fwd.cu")
+SOURCES = ("space_attention_fwd.cu", "time_attention_fwd.cu",
+           "space_attention_bwd.cu", "time_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_FWD = ([_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I)
+_BWD = ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I)
 _SIGNATURES = {
-    "egovlp_space_attention_fwd": ([_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I),
-    "egovlp_time_attention_fwd": ([_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I),
+    "egovlp_space_attention_fwd": _FWD,
+    "egovlp_time_attention_fwd": _FWD,
+    "egovlp_space_attention_bwd": _BWD,
+    "egovlp_time_attention_bwd": _BWD,
+    "egovlp_time_attention_fwd_threads": ([_I] * 4 + [ctypes.POINTER(_I)], _I),
     "egovlp_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -61,19 +67,28 @@ def library_path(nvcc: str) -> pathlib.Path:
 
 
 def build(nvcc: str, out: pathlib.Path) -> None:
-    """Compile every source into ``out`` (written atomically)."""
+    """Compile every source into ``out`` (written atomically): one nvcc
+    process per source, all started together, then one link."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, f"{pathlib.Path(s).stem}.o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True)
+                 for s, o in zip(SOURCES, objs)]
+        errors = []
+        for s, proc in zip(SOURCES, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc {s} failed ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        lib = os.path.join(tmp, out.name)
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(lib, out)
 
 
 @functools.cache

@@ -125,10 +125,11 @@ space_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch_space(const void* q, const void* k, const void* v, const void* ck,
                  const void* cv, void* out, int B, int G, int L, int D, int H,
-                 float scale, cudaStream_t stream) {
+                 float scale, int device, cudaStream_t stream) {
   const size_t smem = space_smem_bytes<T>(L, D / H);
-  if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(space_attention_fwd_kernel<T>,
+  cudaError_t err = check_smem(smem, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(space_attention_fwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -153,8 +154,9 @@ extern "C" int egovlp_space_attention_fwd(const void* q, const void* k, const vo
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == egovlp::kBFloat16)
     return egovlp::launch_space<__nv_bfloat16>(q, k, v, cls_k, cls_v, out, B, G, L, D, H,
-                                               scale, s);
+                                               scale, device, s);
   if (dtype == egovlp::kFloat32)
-    return egovlp::launch_space<float>(q, k, v, cls_k, cls_v, out, B, G, L, D, H, scale, s);
+    return egovlp::launch_space<float>(q, k, v, cls_k, cls_v, out, B, G, L, D, H, scale,
+                                       device, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -26,6 +26,13 @@
 // turn, and the stores are contiguous D-wide rows again.  The grid is
 // exactly B x N, so the TPU kernel's n padding is not needed.  Shared
 // memory grows as (3F + 2) D floats: 167 KB at F 16, D 768.
+//
+// Launch configuration (counterpart of the VMEM n-block probe,
+// _time_kernel_compiles / time_n_block): the CTA's shared memory is checked
+// against the device's opt-in limit, read once per device, and a shape
+// above it is refused (the wrapper raises).  The CTA size follows from the
+// same limits (threads_for_smem in common.cuh): as many CTAs as the SM's
+// shared memory holds, with enough threads to fill the SM between them.
 
 #include <math.h>
 
@@ -34,8 +41,6 @@
 namespace egovlp {
 namespace {
 
-constexpr int kTimeThreads = 256;
-
 inline size_t time_smem_bytes(int F, int D, int H) {
   const size_t dp = static_cast<size_t>(D) + 1;
   const size_t f = static_cast<size_t>(F);
@@ -43,7 +48,7 @@ inline size_t time_smem_bytes(int F, int D, int H) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kTimeThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 time_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ cls_k,
                           const T* __restrict__ cls_v, T* __restrict__ out, int F,
@@ -112,15 +117,17 @@ time_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch_time(const void* q, const void* k, const void* v, const void* ck,
                 const void* cv, void* out, int B, int F, int N, int D, int H, float scale,
-                cudaStream_t stream) {
+                int device, cudaStream_t stream) {
   const size_t smem = time_smem_bytes(F, D, H);
-  if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(time_attention_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  int threads = 0;
+  cudaError_t err = threads_for_smem(smem, device, &threads);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(time_attention_fwd_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(B) * N);
-  time_attention_fwd_kernel<T><<<grid, kTimeThreads, smem, stream>>>(
+  time_attention_fwd_kernel<T><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(ck), static_cast<const T*>(cv), static_cast<T*>(out), F, N, D,
       H, scale);
@@ -140,10 +147,19 @@ extern "C" int egovlp_time_attention_fwd(const void* q, const void* k, const voi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == egovlp::kBFloat16)
     return egovlp::launch_time<__nv_bfloat16>(q, k, v, cls_k, cls_v, out, B, F, N, D, H,
-                                              scale, s);
+                                              scale, device, s);
   if (dtype == egovlp::kFloat32)
-    return egovlp::launch_time<float>(q, k, v, cls_k, cls_v, out, B, F, N, D, H, scale, s);
+    return egovlp::launch_time<float>(q, k, v, cls_k, cls_v, out, B, F, N, D, H, scale,
+                                      device, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The CTA size a launch at (F, D, H) on `device` takes, written to
+// `threads`; returns a cudaError_t code (the launch's refusal, if any).
+extern "C" int egovlp_time_attention_fwd_threads(int F, int D, int H, int device,
+                                                 int* threads) {
+  return static_cast<int>(
+      egovlp::threads_for_smem(egovlp::time_smem_bytes(F, D, H), device, threads));
 }
 
 // Message of a cudaError_t code, for the wrappers' exceptions.

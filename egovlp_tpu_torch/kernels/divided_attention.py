@@ -9,6 +9,13 @@ kernels of ``cuda_attention``:
 
 * ``axis='space'``: each frame's n patches attend over [CLS; that frame];
 * ``axis='time'``: each patch column's f frames attend over [CLS; column].
+
+``impl='pallas'`` goes through the autograd Functions ``SpaceAttention`` /
+``TimeAttention`` (forward and backward kernels on a CUDA tensor, their
+plain twins on a CPU tensor); ``impl='xla'`` is the plain forward, which
+autograd differentiates directly: the oracle path.  The CLS row is plain
+torch in both and gets its gradient from autograd, as the JAX package
+gets it from ``jax.grad`` of plain jnp.
 """
 
 from __future__ import annotations
@@ -16,19 +23,25 @@ from __future__ import annotations
 import torch
 
 from egovlp_tpu_torch.kernels.cuda_attention import (
-    space_attention_fwd,
+    SpaceAttention,
+    TimeAttention,
     space_attention_fwd_plain,
-    time_attention_fwd,
     time_attention_fwd_plain,
 )
 
-# (axis, impl) -> grouped op; 'pallas' is the kernel wrapper (hand CUDA
-# kernel on a CUDA tensor, its plain twin on a CPU tensor), 'xla' the twin
+
+def _plain(fn):
+    def grouped(q, k, v, cls_k, cls_v, heads, scale):
+        return fn(q, k, v, cls_k, cls_v, heads=heads, scale=scale)
+    return grouped
+
+
+# (axis, impl) -> grouped op ``(q, k, v, cls_k, cls_v, heads, scale)``
 _GROUPED = {
-    ("space", "pallas"): space_attention_fwd,
-    ("space", "xla"): space_attention_fwd_plain,
-    ("time", "pallas"): time_attention_fwd,
-    ("time", "xla"): time_attention_fwd_plain,
+    ("space", "pallas"): SpaceAttention.apply,
+    ("space", "xla"): _plain(space_attention_fwd_plain),
+    ("time", "pallas"): TimeAttention.apply,
+    ("time", "xla"): _plain(time_attention_fwd_plain),
 }
 
 
@@ -68,5 +81,5 @@ def divided_attention_parts(qc, kc, vc, qp, kp, vp, *, heads: int,
                          f"'pallas'/'xla'; got {axis!r}, {impl!r}")
     scale = float(qp.shape[-1] // heads) ** -0.5
     cls_out = _cls_row_parts(qc, kc, vc, kp, vp, heads, scale)
-    out_p = _GROUPED[axis, impl](qp, kp, vp, kc, vc, heads=heads, scale=scale)
+    out_p = _GROUPED[axis, impl](qp, kp, vp, kc, vc, heads, scale)
     return cls_out, out_p

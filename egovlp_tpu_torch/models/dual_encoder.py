@@ -53,9 +53,10 @@ class DualEncoder(nn.Module):
         else:
             raise NotImplementedError(cfg.projection)
 
-    def encode_video(self, video):
-        """``[B, T, H, W, 3]`` -> ``[B, projection_dim]`` float32."""
-        return self.vid_proj(self.video_model(video)).float()
+    def encode_video(self, video, generator: "torch.Generator | None" = None):
+        """``[B, T, H, W, 3]`` -> ``[B, projection_dim]`` float32;
+        ``generator`` draws the drop-path masks in training mode."""
+        return self.vid_proj(self.video_model(video, generator)).float()
 
     def encode_text(self, input_ids, attention_mask):
         """-> ``[B, projection_dim]`` CLS-pooled projected text embedding."""
@@ -66,10 +67,12 @@ class DualEncoder(nn.Module):
         """Token-level projected embeddings ``[B, S, projection_dim]``."""
         return self.txt_proj(self.text_model(input_ids, attention_mask)).float()
 
-    def forward(self, video, input_ids, attention_mask):
-        """Returns ``(text_embeddings, video_embeddings)``."""
+    def forward(self, video, input_ids, attention_mask,
+                generator: "torch.Generator | None" = None):
+        """The training forward (``DualEncoder.__call__`` of the JAX
+        package, :90-96): ``(text_embeddings, video_embeddings)``."""
         return (self.encode_text(input_ids, attention_mask),
-                self.encode_video(video))
+                self.encode_video(video, generator))
 
 
 def sim_matrix(a: torch.Tensor, b: torch.Tensor,

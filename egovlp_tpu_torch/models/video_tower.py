@@ -1,4 +1,4 @@
-"""SpaceTimeTransformer video tower, inference only.
+"""SpaceTimeTransformer video tower.
 
 Counterpart of ``egovlp_tpu/models/video_tower.py``.  Parameter names are
 the reference's (``blocks.{i}.timeattn.qkv.weight``, ...), so one
@@ -13,9 +13,16 @@ published EgoVLP checkpoint alike.  Kept from the JAX tower:
 * ``time_init='zeros'``: zero time-attention qkv, all-ones output
   projection (applied by ``build.init_params``);
 * the temporal embed is sliced to the input's ``T <= num_frames``;
-* exact-erf GELU, LayerNorm eps 1e-6 with f32 statistics.
+* exact-erf GELU, LayerNorm eps 1e-6 with f32 statistics;
+* training mode: drop-path at rates ``linspace(0, drop_path_rate, depth)``
+  on the space-attention and MLP branches, one keep mask per sample for
+  both parts of the pair, drawn from an explicit ``torch.Generator``
+  (``video_tower.py:333-345`` of the JAX package).
 
-Dropout and drop-path are identity at inference and are not modelled.
+``drop_rate`` and ``attn_drop_rate`` are not modelled: the JAX builder
+never reads them from a config.  ``remat`` takes only ``False``/``'none'``
+(what every shipped config but the ViT-L tensor-parallel one sets); the
+recompute modes are listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -58,6 +65,15 @@ class VideoTowerConfig:
     ln_eps: float = 1e-6
     time_init: str = "zeros"  # 'zeros' => starts as a ViT; else random
     attention_impl: str = "auto"  # see resolve_attention_impls
+    drop_path_rate: float = 0.0
+    remat: "bool | str" = False
+
+    def __post_init__(self):
+        if self.remat not in (False, "none"):
+            raise ValueError(
+                f"remat={self.remat!r}: the port runs without activation "
+                "recompute only (remat false/'none'); the recompute modes "
+                "are still to port (ROADMAP.md, Queue A, A3)")
 
     @property
     def patches_per_frame(self) -> int:
@@ -97,10 +113,25 @@ class VarAttention(nn.Module):
         return self.proj(oc), self.proj(op)
 
 
+def drop_path(xc, xp, rate: float, generator: "torch.Generator | None"):
+    """Per-sample path drop of the ``(cls, grid)`` pair: one keep mask per
+    sample for both parts, kept parts scaled by ``1 / (1 - rate)``."""
+    if generator is None:
+        raise ValueError("drop_path in training mode needs an explicit "
+                         "torch.Generator")
+    keep = 1.0 - rate
+    mask = (torch.rand(xc.shape[0], generator=generator,
+                       device=generator.device) < keep).to(xc.device)
+    return (xc * (mask.reshape(-1, 1, 1) / keep).to(xc.dtype),
+            xp * (mask.reshape(-1, 1, 1, 1) / keep).to(xp.dtype))
+
+
 class SpaceTimeBlock(nn.Module):
-    def __init__(self, cfg: VideoTowerConfig, device=None):
+    def __init__(self, cfg: VideoTowerConfig, drop_path: float = 0.0,
+                 device=None):
         super().__init__()
         D = cfg.embed_dim
+        self.drop_path = drop_path
         space_impl, time_impl = resolve_attention_impls(cfg.attention_impl)
         self.norm1 = FusedLayerNorm(D, cfg.ln_eps, device=device)
         self.norm2 = FusedLayerNorm(D, cfg.ln_eps, device=device)
@@ -113,13 +144,18 @@ class SpaceTimeBlock(nn.Module):
                                  qkv_bias=cfg.qkv_bias, device=device)
         self.mlp = Mlp(D, int(D * cfg.mlp_ratio), device=device)
 
-    def forward(self, xc, xp):
+    def forward(self, xc, xp, generator: "torch.Generator | None" = None):
+        drop = self.training and self.drop_path > 0.0
         tc, tp = self.timeattn(self.norm3(xc), self.norm3(xp))
         sc, sp = self.attn(self.norm1(xc + tc), self.norm1(xp + tp))
+        if drop:
+            sc, sp = drop_path(sc, sp, self.drop_path, generator)
         # residual from the ORIGINAL x, not from x + time (reference quirk)
         rc, rp = xc + sc, xp + sp
-        return (rc + self.mlp(self.norm2(rc)),
-                rp + self.mlp(self.norm2(rp)))
+        mc, mp = self.mlp(self.norm2(rc)), self.mlp(self.norm2(rp))
+        if drop:
+            mc, mp = drop_path(mc, mp, self.drop_path, generator)
+        return rc + mc, rp + mp
 
 
 class PatchEmbed(nn.Module):
@@ -157,8 +193,9 @@ class SpaceTimeTransformer(nn.Module):
             torch.zeros(1, cfg.patches_per_frame + 1, D, device=device))
         self.temporal_embed = nn.Parameter(
             torch.zeros(1, cfg.num_frames, D, device=device))
+        rates = torch.linspace(0.0, cfg.drop_path_rate, cfg.depth).tolist()
         self.blocks = nn.ModuleList(
-            SpaceTimeBlock(cfg, device=device) for _ in range(cfg.depth))
+            SpaceTimeBlock(cfg, rate, device=device) for rate in rates)
         self.norm = FusedLayerNorm(D, cfg.ln_eps, device=device)
 
     def embed(self, video):
@@ -175,9 +212,10 @@ class SpaceTimeTransformer(nn.Module):
                      + self.temporal_embed[:, :T, None, :])
         return cls, x + patch_pos.to(dt)
 
-    def forward(self, video):
-        """video: ``[B, T, H, W, 3]`` channels-last, ``T <= num_frames``."""
+    def forward(self, video, generator: "torch.Generator | None" = None):
+        """video: ``[B, T, H, W, 3]`` channels-last, ``T <= num_frames``;
+        ``generator`` draws the drop-path masks in training mode."""
         xc, xp = self.embed(video)
         for blk in self.blocks:
-            xc, xp = blk(xc, xp)
+            xc, xp = blk(xc, xp, generator)
         return self.norm(xc)[:, 0]

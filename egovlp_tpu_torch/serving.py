@@ -23,8 +23,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from egovlp_tpu.data.readers import read_frames
-from egovlp_tpu.data.text import WordPieceTokenizer
+from egovlp_tpu_torch.data.readers import read_frames
+from egovlp_tpu_torch.data.text import WordPieceTokenizer
 from egovlp_tpu_torch.data.transforms import eval_resize
 from egovlp_tpu_torch.models.dual_encoder import DualEncoder, sim_matrix
 

@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from egovlp_tpu.data.text import WordPieceTokenizer
 from egovlp_tpu.models import DualEncoder as JaxDualEncoder
 from egovlp_tpu.serving import Embedder as JaxEmbedder
+from egovlp_tpu_torch.data.text import WordPieceTokenizer
 from egovlp_tpu_torch.serving import Embedder, serve
 from tests.test_torch_models import (  # noqa: F401
     RES,
