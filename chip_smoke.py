@@ -23,6 +23,18 @@ Phases, each of which passes or raises (any failure exits non-zero):
    for K1-bwd, whose gradients are ~0.1 at these inputs, and <= 5e-2 for
    K2-bwd, whose are ~1-5; the same relative L2 limits); library time =
    ``torch.autograd.grad`` of the SDPA call minus its forward;
+   then the head-split kernels K4 (``grouped_attention``) and K5
+   (``time_attention_hs``), forward and backward, against their plain
+   twins on unit-normal inputs with q already scaled by hd ** -0.5, float32
+   and bf16: K4 ``[BH, G, L, 64]`` at L in {1, 4, 16, 61, 196} and G from 1
+   to 196, K5 ``[BH, f, n, 64]`` at f in {1, 4, 16}, and the full-width
+   shapes of phase 6 (BH 384); max abs error at float32 <= 1e-4 (forward)
+   and 2e-4 (backward), at bf16 <= 2e-2 (K4-fwd, as K1-fwd) and 4e-2
+   (K5-fwd: 2 to 5 keys, so outputs up to ~5, where one ulp is 3.1e-2),
+   and 2.5e-1 (backward: their dq is not multiplied by the scale, so
+   gradients reach ~30, where one ulp is 1.25e-1); the same
+   relative L2 limits; timed at ``[192, 4, 196, 64]`` bf16 (B 16 x 12
+   heads), the library call being SDPA with one head a group and scale 1;
 4. serving slice: the full-width dual encoder of ``configs/eval/egomcq.json``
    in bf16 with seeded random weights (time attention initialised
    non-zero, so the time kernel sees real inputs) behind ``serve()``:
@@ -46,7 +58,18 @@ Phases, each of which passes or raises (any failure exits non-zero):
    one step's end to the next (the batch's copy to the device, the step's
    generator and the loop included) with clips/s, then a
    ``torch.profiler`` breakdown of 3 steps (device busy time by kernel,
-   idle share, launches a step).
+   idle share, launches a step);
+6. head-split op: ``divided_attention(impl='pallas')`` forward and
+   backward (``autograd.grad`` of ``sum(out * cos(out))``) at the EgoVLP
+   pretraining shape in bf16, B 32, H 12, n 196, hd 64, on the space axis
+   at f 4 and the time axis at f 4 and 16 (S 785 and 3137).  Each call
+   must launch K4 (space) or K5 (time) forward and backward once each and
+   no other kernel; its output and q/k/v gradients are held against
+   ``impl='xla'`` on the same tensors and against
+   ``divided_attention_bsd(impl='pallas')``, the K1/K2 route, on the
+   un-split ``[B, S, D]`` form of them (max abs error within 4% of the
+   largest value, relative L2 within 1e-2); prints each route's median
+   forward + backward time.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object with one
 entry per kernel, and ``{"ok": true, "device": {...}}``.
@@ -75,10 +98,18 @@ KERNELS = {
     "space_attention_bwd": "egovlp_tpu/kernels/pallas_attention.py:765",
     "time_attention_bwd": "egovlp_tpu/kernels/pallas_attention.py:1496",
 }
+# the head-split kernels (q already scaled), reached by divided_attention
+HS_KERNELS = {
+    "grouped_attention_fwd": "egovlp_tpu/kernels/pallas_attention.py:112",
+    "grouped_attention_bwd": "egovlp_tpu/kernels/pallas_attention.py:130",
+    "time_attention_hs_fwd": "egovlp_tpu/kernels/pallas_attention.py:265",
+    "time_attention_hs_bwd": "egovlp_tpu/kernels/pallas_attention.py:278",
+}
 FWD = ("space_attention_fwd", "time_attention_fwd")
 BWD = ("space_attention_bwd", "time_attention_bwd")
 HEADS, DIM = 12, 768
-SCALE = (DIM // HEADS) ** -0.5
+HD = DIM // HEADS
+SCALE = HD ** -0.5
 TIMED = (16, 4, 196)  # B, f, n of the timed bf16 calls
 # NVIDIA H100 SXM data sheet: HBM bytes/s and dense bf16 tensor FLOP/s
 PEAK_BYTES, PEAK_BF16_FLOPS = 3.35e12, 989e12
@@ -124,19 +155,37 @@ def grid_inputs(B, f, n, dtype, seed, grad=False):
     return (*grid[:3], mk(B, 1, DIM), mk(B, 1, DIM), *grid[3:])
 
 
-def bound_ms(name: str, B: int, f: int, n: int, itemsize: int = 2):
+def hs_inputs(BH, f, n, dtype, seed, grad=False):
+    """Head-split q, k, v ``[BH, f, n, hd]`` (q already scaled by
+    ``hd ** -0.5``), cls_k, cls_v ``[BH, 1, hd]`` (and do), unit normal."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    grid = [mk(BH, f, n, HD) for _ in range(4 if grad else 3)]
+    grid[0] = grid[0] * SCALE
+    x = (*grid[:3], mk(BH, 1, HD), mk(BH, 1, HD), *grid[3:])
+    return tuple(t.to(dtype) for t in x)
+
+
+def bound_ms(name: str, B: int, f: int, n: int, D: int = DIM,
+             itemsize: int = 2):
     """``(ms, 'bytes' | 'operations')``: the least time of the kernel's work
-    on an H100 at (B, f, n), the larger of the bytes that must move (each
-    input read once, each output written once) over HBM bandwidth and its
-    FLOPs over the dense bf16 tensor rate."""
-    grid = B * f * n * DIM * itemsize
-    cls = B * DIM * itemsize
-    keys = n + 1 if name.startswith("space") else f + 1
+    on an H100 on ``[B, f, n, D]`` inputs (K4/K5: B = batch x heads, D =
+    hd), the larger of the bytes that must move (each input read once, each
+    output written once) over HBM bandwidth and its FLOPs over the dense
+    bf16 tensor rate."""
+    grid = B * f * n * D * itemsize
+    cls = B * D * itemsize
+    keys = n + 1 if name.startswith(("space", "grouped")) else f + 1
     if name.endswith("fwd"):  # q, k, v in, out out; two products
         nbytes, products = 4 * grid + 2 * cls, 2
     else:  # q, k, v, do in, dq, dk, dv out; CLS in and CLS grads out
         nbytes, products = 7 * grid + 4 * cls, 5
-    flops = 2 * products * B * f * n * keys * DIM
+    flops = 2 * products * B * f * n * keys * D
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -169,30 +218,68 @@ def sdpa_layout(x, axis: str, grad: bool):
     return out
 
 
+def sdpa_hs_layout(name, x, grad: bool):
+    """A head-split kernel's inputs laid out for SDPA, one head a group:
+    K4 q ``[BH*G, 1, L, hd]``, k/v ``[BH*G, 1, L+1, hd]``; K5 q
+    ``[BH*n, 1, f, hd]``, k/v ``[BH*n, 1, f+1, hd]``; CLS first.  (Plus do
+    laid out as q.)"""
+    import torch
+
+    q, k, v, ck, cv = x[:5]
+    BH, a, b, hd = q.shape
+    grouped = name.startswith("grouped")
+    groups, rows, reps = (BH * a, b, a) if grouped else (BH * b, a, b)
+
+    def lay(t):
+        t = t if grouped else t.permute(0, 2, 1, 3)
+        return t.reshape(groups, 1, rows, hd).contiguous()
+
+    def with_cls(c, t):
+        c = c.reshape(BH, 1, 1, hd).expand(BH, reps, 1, hd)
+        return torch.cat([c.reshape(groups, 1, 1, hd), lay(t)], dim=2)
+
+    out = [lay(q), with_cls(ck, k), with_cls(cv, v)]
+    if grad:
+        out = [t.requires_grad_() for t in out] + [lay(x[5])]
+    return out
+
+
 def phase_kernels(ca, smi: str) -> dict:
     import torch
     import torch.nn.functional as F
 
     # max abs error; the bf16 limits are a few times the error each kernel
     # shows (1-2 bf16 ulps of its outputs), well under the error of a
-    # kernel that drops a term of its gradient
+    # kernel that drops a term of its gradient.  The head-split kernels
+    # take q already scaled, so their logits are as large as K1/K2's but
+    # their dq is not multiplied by the scale: their gradients run ~8x
+    # larger (up to ~30), and so do their limits.
     tol = {name: {torch.float32: 1e-4, torch.bfloat16: 2e-2} for name in FWD}
     tol["space_attention_bwd"] = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     tol["time_attention_bwd"] = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+    tol["grouped_attention_fwd"] = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    tol["time_attention_hs_fwd"] = {torch.float32: 1e-4, torch.bfloat16: 4e-2}
+    tol["grouped_attention_bwd"] = {torch.float32: 2e-4, torch.bfloat16: 2.5e-1}
+    tol["time_attention_hs_bwd"] = {torch.float32: 2e-4, torch.bfloat16: 2.5e-1}
     rel_tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+    def call(fn, name, x):
+        if name in HS_KERNELS:
+            return fn(*x)
+        return fn(*x, heads=HEADS, scale=SCALE)
 
     def check_kernel(name, x, label):
         """Runs the kernel and its plain twin on ``x``, prints and checks
         the max abs and relative L2 error of each output; returns the
         largest max abs error."""
         kernel, plain = getattr(ca, name), getattr(ca, f"{name}_plain")
-        got = kernel(*x, heads=HEADS, scale=SCALE)
+        got = call(kernel, name, x)
         torch.cuda.synchronize()
-        want = plain(*x, heads=HEADS, scale=SCALE)
+        want = call(plain, name, x)
         torch.cuda.synchronize()
-        got, want = ((got,), (want,)) if name in FWD else (got, want)
-        outs = ("out",) if name in FWD else ("dq", "dk", "dv", "dcls_k",
-                                             "dcls_v")
+        fwd = name.endswith("fwd")
+        got, want = ((got,), (want,)) if fwd else (got, want)
+        outs = ("out",) if fwd else ("dq", "dk", "dv", "dcls_k", "dcls_v")
         dtype = x[0].dtype
         t, t_rel = tol[name][dtype], rel_tol[dtype]
         ok, errs, detail = True, [], []
@@ -204,7 +291,7 @@ def phase_kernels(ca, smi: str) -> dict:
             errs.append(err)
             detail.append(f"{o} {err:.3e}/{rel:.1e}")
         print(f"check {name} {str(dtype)[6:]} {label}: max_abs_err/rel_l2 "
-              f"{' '.join(detail)} (tol {t:.0e}/{t_rel:.0e}) "
+              f"{' '.join(detail)} (tol {t:.2g}/{t_rel:.0e}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"{name} disagrees with its plain version")
         return max(errs)
@@ -217,36 +304,56 @@ def phase_kernels(ca, smi: str) -> dict:
                                 grad=name in BWD)
                 check_kernel(name, x, f"B{B} f{f} n{n}")
                 del x
+    # K4 [BH, G, L, hd]: L in {1, 4, 16, 61, 196}, G from 1 to 196 (L 4,
+    # G 196 is the time-shaped group); K5 [BH, f, n, hd] at f 1, 4, 16;
+    # then the full-width shapes of phase 6 (B 32 x 12 heads)
+    hs_shapes = {"grouped": ((48, 4, 196), (48, 1, 196), (48, 196, 4),
+                             (24, 7, 61), (24, 5, 16), (24, 3, 1),
+                             (384, 4, 196)),
+                 "time": ((48, 1, 196), (48, 4, 196), (48, 16, 196),
+                          (24, 4, 61), (384, 4, 196), (384, 16, 196))}
+    for name in HS_KERNELS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for BH, a, b in hs_shapes[name.split("_")[0]]:
+                x = hs_inputs(BH, a, b, dtype, seed=a * 1000 + b + BH,
+                              grad=name.endswith("bwd"))
+                check_kernel(name, x, f"BH{BH} {a}x{b} hd{HD}")
+                del x
 
     rows = {}
     B, f, n = TIMED
-    for name in KERNELS:
+    for name in (*KERNELS, *HS_KERNELS):
         kernel, plain = getattr(ca, name), getattr(ca, f"{name}_plain")
-        axis = name.split("_")[0]
-        x = grid_inputs(B, f, n, torch.bfloat16, seed=B,
-                        grad=name in BWD)
-        t_plain = median_ms(lambda: plain(*x, heads=HEADS, scale=SCALE))
-        t_kernel = median_ms(lambda: kernel(*x, heads=HEADS, scale=SCALE))
-        lay = sdpa_layout(x, axis, grad=name in BWD)
+        bwd = name.endswith("bwd")
+        if name in HS_KERNELS:  # [B * H, f, n, hd]
+            x = hs_inputs(B * HEADS, f, n, torch.bfloat16, seed=B, grad=bwd)
+            lay = sdpa_hs_layout(name, x, grad=bwd)
+            scale, shape, label = 1.0, [B * HEADS, f, n, HD], f"BH{B * HEADS}"
+            bound, bound_by = bound_ms(name, B * HEADS, f, n, D=HD)
+        else:
+            x = grid_inputs(B, f, n, torch.bfloat16, seed=B, grad=bwd)
+            lay = sdpa_layout(x, name.split("_")[0], grad=bwd)
+            scale, shape, label = SCALE, [B, f, n, DIM], f"B{B}"
+            bound, bound_by = bound_ms(name, B, f, n)
+        t_plain = median_ms(lambda: call(plain, name, x))
+        t_kernel = median_ms(lambda: call(kernel, name, x))
 
         def sdpa():
-            return F.scaled_dot_product_attention(*lay[:3], scale=SCALE)
+            return F.scaled_dot_product_attention(*lay[:3], scale=scale)
 
         t_lib = median_ms(sdpa)
-        if name in BWD:
+        if bwd:
             def sdpa_grad():
                 return torch.autograd.grad(sdpa(), lay[:3], lay[3])
 
             t_lib = median_ms(sdpa_grad) - t_lib
-        err = check_kernel(name, x, f"B{B} f{f} n{n} (timed inputs)")
-        bound, bound_by = bound_ms(name, B, f, n)
-        print(f"time {name} bf16 B{B} f{f} n{n}: kernel {t_kernel:.4f} ms, "
+        err = check_kernel(name, x, f"{label} f{f} n{n} (timed inputs)")
+        print(f"time {name} bf16 {label} f{f} n{n}: kernel {t_kernel:.4f} ms, "
               f"plain {t_plain:.4f} ms, library {t_lib:.4f} ms, bound "
               f"{bound:.4f} ms [{smi}]", flush=True)
         rows[name] = {"ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
                       "bound_ms": bound, "bound_by": bound_by,
-                      "max_abs_err": err, "dtype": "bfloat16",
-                      "shape": [B, f, n, DIM]}
+                      "max_abs_err": err, "dtype": "bfloat16", "shape": shape}
         del x, lay
     for dtype, B in ((torch.bfloat16, 4), (torch.float32, 4)):
         for name in FWD:
@@ -584,6 +691,96 @@ def profile_steps(model, opt, step, batches, smi: str, n: int = 3) -> None:
               f"ms/step {e.count / n:6.0f}x  {e.key[:90]}", flush=True)
 
 
+def phase_head_split(ca, smi: str) -> dict:
+    """The head-split op ``divided_attention(impl='pallas')`` forward and
+    backward at full width; returns the K4/K5 launches of its runs."""
+    import torch
+
+    from egovlp_tpu_torch.kernels import divided_attention
+    from egovlp_tpu_torch.kernels.divided_attention import divided_attention_bsd
+
+    B, n = 32, 196
+    total = {name: 0 for name in HS_KERNELS}
+    for axis, f in (("space", 4), ("time", 4), ("time", 16)):
+        S = 1 + f * n
+        g = torch.Generator(device="cuda").manual_seed(100 * f + len(axis))
+        bsd = [torch.randn(B, S, DIM, device="cuda", generator=g).to(
+            torch.bfloat16) for _ in range(3)]
+
+        def split(t):  # [B, S, D] -> [B, H, S, hd]
+            return t.reshape(B, S, HEADS, HD).transpose(1, 2).contiguous()
+
+        # the head-split form of the same tensors, q scaled in its dtype
+        # as divided_attention_bsd scales it
+        hs = [split(bsd[0]) * SCALE, split(bsd[1]), split(bsd[2])]
+        routes = {
+            "pallas": (hs, lambda *xs: divided_attention(
+                *xs, frames=f, patches=n, axis=axis, impl="pallas")),
+            "xla": (hs, lambda *xs: divided_attention(
+                *xs, frames=f, patches=n, axis=axis, impl="xla")),
+            "bsd K1/K2": (bsd, lambda *xs: divided_attention_bsd(
+                *xs, heads=HEADS, frames=f, patches=n, axis=axis,
+                impl="pallas")),
+        }
+
+        def run(route):
+            """``[out, dq, dk, dv]`` of ``sum(out * cos(out))``."""
+            inputs, op = routes[route]
+            xs = [t.detach().requires_grad_() for t in inputs]
+            out = op(*xs)
+            o = out.float()
+            return [out.detach(), *torch.autograd.grad(
+                (o * torch.cos(o)).sum(), xs)]
+
+        # ---- the main path, counted --------------------------------------
+        ca.reset_launch_counts()
+        got = run("pallas")
+        torch.cuda.synchronize()
+        counts = dict(ca.launches)
+        # --------------------------------------------------------------------
+        kernel = "grouped_attention" if axis == "space" else "time_attention_hs"
+        print(f"head-split {axis} f{f} launches: {counts}", flush=True)
+        for name, c in counts.items():
+            want = 1 if name in (f"{kernel}_fwd", f"{kernel}_bwd") else 0
+            check(c == want, f"{name}: {c} launches in one {axis} op call, "
+                             f"expected {want}")
+            if name in total:
+                total[name] += c
+        check(all(t.shape == (B, HEADS, S, HD) and bool(torch.isfinite(t).all())
+                  for t in got), f"head-split {axis} f{f}: bad output")
+        want_xla = run("xla")
+        k12 = run("bsd K1/K2")
+        # the K1/K2 route's grads are w.r.t. unscaled q: dq_hs = dq / scale
+        k12 = [split(k12[0]), split(k12[1]) / SCALE, split(k12[2]),
+               split(k12[3])]
+        for route, want in (("xla", want_xla), ("bsd K1/K2", k12)):
+            detail, ok = [], True
+            for o, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+                a, w = a.double(), w.double()
+                err = (a - w).abs().max().item()
+                rel = ((a - w).norm() / w.norm()).item()
+                # max abs within 4% of the largest value (a few bf16 ulps
+                # there), relative L2 within 1%
+                lim = 4e-2 * w.abs().max().item()
+                ok &= err <= lim and rel <= 1e-2
+                detail.append(f"{o} {err:.3e}/{rel:.1e} (lim {lim:.1e})")
+            print(f"check divided_attention {axis} f{f} B{B} bf16 pallas vs "
+                  f"{route}: max_abs_err/rel_l2 {' '.join(detail)} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"divided_attention {axis} f{f}: pallas disagrees "
+                      f"with {route}")
+        del want_xla, k12, got
+        times = {route: median_ms(lambda: run(route), iters=10)
+                 for route in routes}
+        print(f"time divided_attention {axis} f{f} B{B} bf16, forward + "
+              f"backward: " + ", ".join(f"{r} {t:.4f} ms"
+                                         for r, t in times.items())
+              + f" [{smi}]", flush=True)
+        del bsd, hs, routes
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     import torch
 
@@ -621,6 +818,8 @@ def main() -> None:
     serve_counts, _ = phase_slice(ca, smi)
     torch.cuda.empty_cache()
     train_counts = phase_train(ca, smi)
+    torch.cuda.empty_cache()
+    hs_counts = phase_head_split(ca, smi)
 
     kernels = [{"name": name, "route": "cuda",
                 "source": f"egovlp_tpu_torch/kernels/csrc/{name}.cu",
@@ -629,6 +828,12 @@ def main() -> None:
                                      "training": train_counts[name]},
                 **rows[name]}
                for name, replaces in KERNELS.items()]
+    kernels += [{"name": name, "route": "cuda",
+                 "source": f"egovlp_tpu_torch/kernels/csrc/{name}.cu",
+                 "replaces": replaces, "launches": hs_counts[name],
+                 "launches_by_path": {"head_split_op": hs_counts[name]},
+                 **rows[name]}
+                for name, replaces in HS_KERNELS.items()]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

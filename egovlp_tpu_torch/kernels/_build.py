@@ -22,7 +22,9 @@ import tempfile
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "egovlp_kernels"
 SOURCES = ("space_attention_fwd.cu", "time_attention_fwd.cu",
-           "space_attention_bwd.cu", "time_attention_bwd.cu")
+           "space_attention_bwd.cu", "time_attention_bwd.cu",
+           "grouped_attention_fwd.cu", "grouped_attention_bwd.cu",
+           "time_attention_hs_fwd.cu", "time_attention_hs_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -30,11 +32,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FWD = ([_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I)
 _BWD = ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I)
+# head-split kernels: [BH, G, L, hd] (K4) or [BH, f, n, hd] (K5), q scaled
+_HS_FWD = ([_P] * 6 + [_I] * 4 + [_I, _I, _P], _I)
+_HS_BWD = ([_P] * 11 + [_I] * 4 + [_I, _I, _P], _I)
 _SIGNATURES = {
     "egovlp_space_attention_fwd": _FWD,
     "egovlp_time_attention_fwd": _FWD,
     "egovlp_space_attention_bwd": _BWD,
     "egovlp_time_attention_bwd": _BWD,
+    "egovlp_grouped_attention_fwd": _HS_FWD,
+    "egovlp_grouped_attention_bwd": _HS_BWD,
+    "egovlp_time_attention_hs_fwd": _HS_FWD,
+    "egovlp_time_attention_hs_bwd": _HS_BWD,
     "egovlp_time_attention_fwd_threads": ([_I] * 4 + [ctypes.POINTER(_I)], _I),
     "egovlp_cuda_error_string": ([_I], ctypes.c_char_p),
 }

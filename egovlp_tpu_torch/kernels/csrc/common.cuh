@@ -74,6 +74,20 @@ inline cudaError_t threads_for_smem(size_t smem, int device, int* threads) {
   return cudaSuccess;
 }
 
+// Patch columns one CTA of the head-split time kernels (K5) takes: as many as
+// fit in kColumnSmemBudget bytes of shared memory beside `fixed` bytes, at
+// most kMaxColumns and N, at least one.  The budget leaves room for three
+// CTAs an SM; a shape whose one column passes the opt-in limit is refused by
+// threads_for_smem.
+constexpr int kMaxColumns = 32;
+constexpr size_t kColumnSmemBudget = 64 * 1024;
+
+inline int columns_for_smem(size_t per_column, size_t fixed, int N) {
+  const size_t room = kColumnSmemBudget > fixed ? kColumnSmemBudget - fixed : 0;
+  const int nb = static_cast<int>(std::min<size_t>(room / per_column, kMaxColumns));
+  return std::max(1, std::min(nb, N));
+}
+
 // Refuses `smem` above the device's opt-in limit.
 inline cudaError_t check_smem(size_t smem, int device) {
   DeviceLimits lim;

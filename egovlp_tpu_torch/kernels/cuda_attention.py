@@ -6,11 +6,18 @@ Counterpart of ``egovlp_tpu/kernels/pallas_attention.py``:
 * ``space_attention_fwd`` (K1-fwd) / ``space_attention_bwd`` (K1-bwd) and
   the Function ``SpaceAttention`` <- ``make_space_attention_bsd`` (:821);
 * ``time_attention_fwd`` (K2-fwd) / ``time_attention_bwd`` (K2-bwd) and
-  the Function ``TimeAttention`` <- ``make_time_attention_bsd`` (:1568).
+  the Function ``TimeAttention`` <- ``make_time_attention_bsd`` (:1568);
+* ``grouped_attention_fwd`` (K4-fwd) / ``grouped_attention_bwd`` (K4-bwd)
+  and the Function ``GroupedAttention`` <- ``grouped_attention`` (:157);
+* ``time_attention_hs_fwd`` (K5-fwd) / ``time_attention_hs_bwd`` (K5-bwd)
+  and the Function ``TimeAttentionHS`` <- ``time_attention`` (:299).
 
-All work on the grid layout ``q, k, v: [B, f, n, D]`` with the CLS key and
-value ``[B, 1, D]`` spliced in front of every group; heads are sliced from
-D inside the kernels.  A wrapper given CUDA tensors launches its kernel
+K1 and K2 work on the grid layout ``q, k, v: [B, f, n, D]`` with the CLS
+key and value ``[B, 1, D]`` spliced in front of every group; heads are
+sliced from D inside the kernels, which scale q.  K4 and K5 take heads
+already split and q already scaled: K4 ``[BH, G, L, hd]`` groups, K5 the
+natural ``[BH, f, n, hd]`` layout (group = one patch column's f frames),
+CLS ``[BH, 1, hd]``.  A wrapper given CUDA tensors launches its kernel
 (``kernels/csrc``) or raises; given CPU tensors it computes the plain
 version beside it.  ``launches`` counts kernel launches per wrapper.  As
 the JAX ``custom_vjp`` does, a Function saves only its inputs and the
@@ -24,7 +31,9 @@ import torch
 from egovlp_tpu_torch.kernels._build import load_library
 
 launches = {"space_attention_fwd": 0, "time_attention_fwd": 0,
-            "space_attention_bwd": 0, "time_attention_bwd": 0}
+            "space_attention_bwd": 0, "time_attention_bwd": 0,
+            "grouped_attention_fwd": 0, "grouped_attention_bwd": 0,
+            "time_attention_hs_fwd": 0, "time_attention_hs_bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -36,7 +45,7 @@ def reset_launch_counts() -> None:
 
 def _check(q, k, v, cls_k, cls_v, heads: int, do=None) -> None:
     if q.dim() != 4:
-        raise ValueError(f"q must be [B, f, n, D], got {tuple(q.shape)}")
+        raise ValueError(f"q must be 4-D, got {tuple(q.shape)}")
     B, _, _, D = q.shape
     grid = (k, v) if do is None else (k, v, do)
     if any(t.shape != q.shape for t in grid):
@@ -57,16 +66,17 @@ def _check(q, k, v, cls_k, cls_v, heads: int, do=None) -> None:
         raise ValueError("q, k, v, cls_k, cls_v (and do) must be contiguous")
 
 
-def _launch(name: str, dims, inputs, outputs, scale: float) -> None:
+def _launch(name: str, inputs, outputs, args) -> None:
     """Launch kernel ``name`` on the inputs' device and current stream over
-    preallocated ``outputs``, or raise."""
+    preallocated ``outputs``, with the scalar ``args`` (the shape, then the
+    kernel's own scalars, in the C signature's order), or raise."""
     q = inputs[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     lib = load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = getattr(lib, f"egovlp_{name}")(
-        *(t.data_ptr() for t in (*inputs, *outputs)), *dims, float(scale),
+        *(t.data_ptr() for t in (*inputs, *outputs)), *args,
         _DTYPE_CODES[q.dtype], q.device.index, stream)
     if err != 0:
         msg = lib.egovlp_cuda_error_string(err).decode()
@@ -75,27 +85,31 @@ def _launch(name: str, dims, inputs, outputs, scale: float) -> None:
     launches[name] += 1
 
 
-def _fwd(name, plain, q, k, v, cls_k, cls_v, heads, scale):
-    _check(q, k, v, cls_k, cls_v, heads)
+def _fwd(name, plain, x, **kw):
+    """``x = (q, k, v, cls_k, cls_v)``; ``kw`` are the kernel's scalars
+    after the shape (``heads``, ``scale`` for K1/K2; none for K4/K5)."""
+    q = x[0]
+    _check(*x, kw.get("heads", 1))
     if q.device.type == "cpu":
-        return plain(q, k, v, cls_k, cls_v, heads=heads, scale=scale)
+        return plain(*x, **kw)
     out = torch.empty_like(q)
-    _launch(name, (*q.shape, heads), (q, k, v, cls_k, cls_v), (out,), scale)
+    _launch(name, x, (out,), (*q.shape, *kw.values()))
     return out
 
 
-def _bwd(name, plain, part_shape, q, k, v, cls_k, cls_v, do, heads, scale):
-    """dq, dk, dv and the CLS grads [B, 1, D]: the kernel writes each
-    group's float32 share of the CLS grads to ``[B, groups, D]`` scratch,
-    summed here over the groups and cast once."""
-    _check(q, k, v, cls_k, cls_v, heads, do)
+def _bwd(name, plain, part_shape, x, **kw):
+    """dq, dk, dv and the CLS grads ``[B, 1, D]`` for ``x = (q, k, v, cls_k,
+    cls_v, do)``: the kernel writes each group's float32 share of the CLS
+    grads to ``part_shape = [B, groups, D]`` scratch, summed here over the
+    groups and cast once."""
+    q = x[0]
+    _check(*x[:5], kw.get("heads", 1), x[5])
     if q.device.type == "cpu":
-        return plain(q, k, v, cls_k, cls_v, do, heads=heads, scale=scale)
+        return plain(*x, **kw)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     parts = [torch.empty(part_shape, device=q.device, dtype=torch.float32)
              for _ in range(2)]
-    _launch(name, (*q.shape, heads), (q, k, v, cls_k, cls_v, do),
-            (dq, dk, dv, *parts), scale)
+    _launch(name, x, (dq, dk, dv, *parts), (*q.shape, *kw.values()))
     dck, dcv = (t.sum(dim=1, keepdim=True).to(q.dtype) for t in parts)
     return dq, dk, dv, dck, dcv
 
@@ -131,7 +145,7 @@ def space_attention_fwd(q, k, v, cls_k, cls_v, *, heads: int,
                         scale: float) -> torch.Tensor:
     """K1-fwd: each frame's patch queries attend over [CLS; that frame]."""
     return _fwd("space_attention_fwd", space_attention_fwd_plain,
-                q, k, v, cls_k, cls_v, heads, scale)
+                (q, k, v, cls_k, cls_v), heads=heads, scale=scale)
 
 
 def space_attention_bwd_plain(q, k, v, cls_k, cls_v, do, *, heads: int,
@@ -173,7 +187,8 @@ def space_attention_bwd(q, k, v, cls_k, cls_v, do, *, heads: int,
     """K1-bwd: ``(dq, dk, dv, dcls_k [B, 1, D], dcls_v [B, 1, D])``."""
     B, G, _, D = q.shape
     return _bwd("space_attention_bwd", space_attention_bwd_plain,
-                (B, G, D), q, k, v, cls_k, cls_v, do, heads, scale)
+                (B, G, D), (q, k, v, cls_k, cls_v, do), heads=heads,
+                scale=scale)
 
 
 # --------------------------------------------------------------------------
@@ -204,7 +219,7 @@ def time_attention_fwd(q, k, v, cls_k, cls_v, *, heads: int,
                        scale: float) -> torch.Tensor:
     """K2-fwd: each patch column's frame queries attend over [CLS; column]."""
     return _fwd("time_attention_fwd", time_attention_fwd_plain,
-                q, k, v, cls_k, cls_v, heads, scale)
+                (q, k, v, cls_k, cls_v), heads=heads, scale=scale)
 
 
 def time_attention_bwd_plain(q, k, v, cls_k, cls_v, do, *, heads: int,
@@ -245,7 +260,130 @@ def time_attention_bwd(q, k, v, cls_k, cls_v, do, *, heads: int,
     """K2-bwd: ``(dq, dk, dv, dcls_k [B, 1, D], dcls_v [B, 1, D])``."""
     B, _, N, D = q.shape
     return _bwd("time_attention_bwd", time_attention_bwd_plain,
-                (B, N, D), q, k, v, cls_k, cls_v, do, heads, scale)
+                (B, N, D), (q, k, v, cls_k, cls_v, do), heads=heads,
+                scale=scale)
+
+
+# --------------------------------------------------------------------------
+# K4: head-split grouped attention ([BH, G, L, hd], q already scaled)
+# --------------------------------------------------------------------------
+
+def _with_cls_groups(c, t):
+    """``[cls; t]`` per group in float32: ``[BH, G, L + 1, hd]``."""
+    BH, G, _, hd = t.shape
+    c = c.reshape(BH, 1, 1, hd).expand(BH, G, 1, hd)
+    return torch.cat([c, t], dim=2).float()
+
+
+def grouped_attention_fwd_plain(q, k, v, cls_k, cls_v) -> torch.Tensor:
+    """Plain PyTorch K4: float32 logits and softmax; the probabilities are
+    normalised, then rounded to the input dtype (``_fwd_kernel`` :47),
+    before a float32 P.V sum and one cast."""
+    dt = q.dtype
+    kc, vc = _with_cls_groups(cls_k, k), _with_cls_groups(cls_v, v)
+    logits = q.float() @ kc.transpose(-1, -2)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(dt).float()
+    return (p @ vc).to(dt)
+
+
+def grouped_attention_fwd(q, k, v, cls_k, cls_v) -> torch.Tensor:
+    """K4-fwd: each group's L queries attend over [CLS; that group]."""
+    return _fwd("grouped_attention_fwd", grouped_attention_fwd_plain,
+                (q, k, v, cls_k, cls_v))
+
+
+def grouped_attention_bwd_plain(q, k, v, cls_k, cls_v, do):
+    """Plain PyTorch K4-bwd, with the rounding points of ``_bwd_kernel``:
+    ``dl`` is rounded to the input dtype before dq, dK and the CLS dK
+    (:84-93); ``do`` is widened to float32 (:61), so dV and the CLS dV
+    take the unrounded probabilities (:90, :94).  The CLS grads are summed
+    over the groups in float32 and cast once (the JAX wrapper casts each
+    group's share first, :139-152)."""
+    dt = q.dtype
+    kc, vc = _with_cls_groups(cls_k, k), _with_cls_groups(cls_v, v)
+    qf, gr = q.float(), do.float()
+    logits = qf @ kc.transpose(-1, -2)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = gr @ vc.transpose(-1, -2)
+    dl = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+    dq = dl @ kc
+    dkc = dl.transpose(-1, -2) @ qf
+    dvc = p.transpose(-1, -2) @ gr
+    return (dq.to(dt), dkc[:, :, 1:].to(dt), dvc[:, :, 1:].to(dt),
+            dkc[:, :, :1].sum(dim=1).to(dt), dvc[:, :, :1].sum(dim=1).to(dt))
+
+
+def grouped_attention_bwd(q, k, v, cls_k, cls_v, do):
+    """K4-bwd: ``(dq, dk, dv, dcls_k [BH, 1, hd], dcls_v [BH, 1, hd])``."""
+    BH, G, _, hd = q.shape
+    return _bwd("grouped_attention_bwd", grouped_attention_bwd_plain,
+                (BH, G, hd), (q, k, v, cls_k, cls_v, do))
+
+
+# --------------------------------------------------------------------------
+# K5: head-split time attention on the natural [BH, f, n, hd] layout
+# --------------------------------------------------------------------------
+
+def _columns(t):
+    """``[BH, f, n, hd]`` -> ``[BH, n, f, hd]`` in float32."""
+    return t.float().permute(0, 2, 1, 3)
+
+
+def _with_cls_columns(c, t):
+    """``[cls; column]`` per patch column in float32: ``[BH, n, f + 1, hd]``."""
+    BH, _, N, hd = t.shape
+    c = c.float().reshape(BH, 1, 1, hd).expand(BH, N, 1, hd)
+    return torch.cat([c, _columns(t)], dim=2)
+
+
+def _frames(t, dt):
+    """``[BH, n, rows, hd]`` -> contiguous ``[BH, rows, n, hd]`` in ``dt``."""
+    return t.permute(0, 2, 1, 3).contiguous().to(dt)
+
+
+def time_attention_hs_fwd_plain(q, k, v, cls_k, cls_v) -> torch.Tensor:
+    """Plain PyTorch K5: float32 throughout (``_time_fwd_kernel`` :191),
+    normalised probabilities, one cast at the end."""
+    kc, vc = _with_cls_columns(cls_k, k), _with_cls_columns(cls_v, v)
+    logits = _columns(q) @ kc.transpose(-1, -2)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return _frames((e / e.sum(dim=-1, keepdim=True)) @ vc, q.dtype)
+
+
+def time_attention_hs_fwd(q, k, v, cls_k, cls_v) -> torch.Tensor:
+    """K5-fwd: each patch column's f frame queries attend over
+    [CLS; column], per (batch * head)."""
+    return _fwd("time_attention_hs_fwd", time_attention_hs_fwd_plain,
+                (q, k, v, cls_k, cls_v))
+
+
+def time_attention_hs_bwd_plain(q, k, v, cls_k, cls_v, do):
+    """Plain PyTorch K5-bwd: float32 throughout, one cast per output
+    (``_time_bwd_kernel`` :212); the CLS grads are summed over all f x n
+    queries in float32."""
+    dt = q.dtype
+    kc, vc = _with_cls_columns(cls_k, k), _with_cls_columns(cls_v, v)
+    qa, gr = _columns(q), _columns(do)
+    logits = qa @ kc.transpose(-1, -2)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = gr @ vc.transpose(-1, -2)
+    dl = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dkc = dl.transpose(-1, -2) @ qa
+    dvc = p.transpose(-1, -2) @ gr
+    return (_frames(dl @ kc, dt), _frames(dkc[:, :, 1:], dt),
+            _frames(dvc[:, :, 1:], dt), dkc[:, :, :1].sum(dim=1).to(dt),
+            dvc[:, :, :1].sum(dim=1).to(dt))
+
+
+def time_attention_hs_bwd(q, k, v, cls_k, cls_v, do):
+    """K5-bwd: ``(dq, dk, dv, dcls_k [BH, 1, hd], dcls_v [BH, 1, hd])``;
+    the kernel writes each patch column's share of the CLS grads."""
+    BH, _, N, hd = q.shape
+    return _bwd("time_attention_hs_bwd", time_attention_hs_bwd_plain,
+                (BH, N, hd), (q, k, v, cls_k, cls_v, do))
 
 
 # --------------------------------------------------------------------------
@@ -284,3 +422,31 @@ class TimeAttention(torch.autograd.Function):
         return (*time_attention_bwd(*ctx.saved_tensors, do.contiguous(),
                                     heads=ctx.heads, scale=ctx.scale),
                 None, None)
+
+
+class GroupedAttention(torch.autograd.Function):
+    """K4: ``apply(q, k, v, cls_k, cls_v)`` on ``[BH, G, L, hd]``, q
+    already scaled; counterpart of the ``grouped_attention`` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cls_k, cls_v):
+        ctx.save_for_backward(q, k, v, cls_k, cls_v)
+        return grouped_attention_fwd(q, k, v, cls_k, cls_v)
+
+    @staticmethod
+    def backward(ctx, do):
+        return grouped_attention_bwd(*ctx.saved_tensors, do.contiguous())
+
+
+class TimeAttentionHS(torch.autograd.Function):
+    """K5: ``apply(q, k, v, cls_k, cls_v)`` on ``[BH, f, n, hd]``, q
+    already scaled; counterpart of the ``time_attention`` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cls_k, cls_v):
+        ctx.save_for_backward(q, k, v, cls_k, cls_v)
+        return time_attention_hs_fwd(q, k, v, cls_k, cls_v)
+
+    @staticmethod
+    def backward(ctx, do):
+        return time_attention_hs_bwd(*ctx.saved_tensors, do.contiguous())

@@ -43,9 +43,12 @@ def resolve_attention_impls(cfg_impl: str):
 
     ``'auto'``/``'pallas'``: the hand-written kernels on a CUDA device (their
     plain twins on a CPU tensor); ``'xla'``: plain torch on both axes;
-    ``'mixed'``: space kernel, time plain."""
+    ``'mixed'``: space kernel, time plain; ``'mixed2'``: space kernel, time
+    ``'xla2'`` (the JAX package's relayout variant of the plain time path,
+    the same math, so plain time here too)."""
     table = {"auto": ("pallas", "pallas"), "pallas": ("pallas", "pallas"),
-             "xla": ("xla", "xla"), "mixed": ("pallas", "xla")}
+             "xla": ("xla", "xla"), "mixed": ("pallas", "xla"),
+             "mixed2": ("pallas", "xla2")}
     if cfg_impl not in table:
         raise ValueError(f"attention_impl must be one of {sorted(table)}, "
                          f"got {cfg_impl!r}")

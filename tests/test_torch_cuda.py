@@ -11,7 +11,9 @@ Tolerances: float32 1e-4 (same math, another summation order); bf16 2e-2
 for the forward kernels and 5e-2 for the backward kernels on unit-normal
 inputs (one bf16 rounding of each output, plus rounding points that a
 different summation order can flip; the backward rounds ``dl`` before two
-more products).
+more products).  The head-split backward kernels (K4, K5) take q already
+scaled and do not multiply dq by the scale, so their gradients run ~8x
+larger (up to ~30, where one bf16 ulp is 0.125): bf16 2.5e-1 for them.
 """
 
 import numpy as np
@@ -28,13 +30,36 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(device, dtype, B, f, n, D, seed=0, grad=False):
-    """q, k, v, cls_k, cls_v (and do when ``grad``)."""
+HEAD_SPLIT = ("grouped_attention", "time_attention_hs")
+
+
+def _inputs(device, dtype, B, f, n, D, seed=0, grad=False, heads=None):
+    """q, k, v, cls_k, cls_v (and do when ``grad``): ``[B, f, n, D]`` and
+    ``[B, 1, D]``, or with ``heads`` the head-split ``[B * heads, f, n,
+    hd]`` and ``[B * heads, 1, hd]`` with q scaled by ``hd ** -0.5``."""
     rng = np.random.default_rng(seed)
+    if heads is not None:
+        B, D = B * heads, D // heads
     grid = [rng.normal(size=(B, f, n, D)) for _ in range(4 if grad else 3)]
     cls = [rng.normal(size=(B, 1, D)) for _ in range(2)]
+    if heads is not None:
+        grid[0] = grid[0] * D ** -0.5
     arrs = grid[:3] + cls + grid[3:]
     return [torch.from_numpy(a).to(device, dtype) for a in arrs]
+
+
+def _kernel_inputs(name, device, dtype, B, f, n, D, H, seed=0):
+    """The inputs of kernel ``name`` at (B, f, n, D, H)."""
+    return _inputs(device, dtype, B, f, n, D, seed=seed,
+                   grad=name.endswith("bwd"),
+                   heads=H if name.startswith(HEAD_SPLIT) else None)
+
+
+def _call(fn, name, x, H):
+    """K1/K2 take ``heads`` and ``scale``; K4/K5 take q already scaled."""
+    if name.startswith(HEAD_SPLIT):
+        return fn(*x)
+    return fn(*x, heads=H, scale=float(x[0].shape[-1] // H) ** -0.5)
 
 
 SHAPES = [(2, 4, 196, 768, 12), (1, 1, 61, 768, 12), (2, 16, 50, 768, 12),
@@ -42,38 +67,42 @@ SHAPES = [(2, 4, 196, 768, 12), (1, 1, 61, 768, 12), (2, 16, 50, 768, 12),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["space_attention_fwd", "time_attention_fwd"])
+@pytest.mark.parametrize("name", ["space_attention_fwd", "time_attention_fwd",
+                                  "grouped_attention_fwd",
+                                  "time_attention_hs_fwd"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,f,n,D,H", SHAPES)
 def test_cuda_kernel_matches_plain(cuda_device, name, dtype, tol, B, f, n, D,
                                    H):
-    x = _inputs(cuda_device, dtype, B, f, n, D)
-    scale = float(D // H) ** -0.5
+    x = _kernel_inputs(name, cuda_device, dtype, B, f, n, D, H)
     ca.reset_launch_counts()
-    got = getattr(ca, name)(*x, heads=H, scale=scale)
+    got = _call(getattr(ca, name), name, x, H)
     torch.cuda.synchronize()
     assert ca.launches[name] == 1
-    want = getattr(ca, f"{name}_plain")(*x, heads=H, scale=scale)
+    want = _call(getattr(ca, f"{name}_plain"), name, x, H)
     assert got.dtype == dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol, err
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["space_attention_bwd", "time_attention_bwd"])
+@pytest.mark.parametrize("name", ["space_attention_bwd", "time_attention_bwd",
+                                  "grouped_attention_bwd",
+                                  "time_attention_hs_bwd"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 5e-2)])
 @pytest.mark.parametrize("B,f,n,D,H", SHAPES)
 def test_cuda_bwd_kernel_matches_plain(cuda_device, name, dtype, tol, B, f, n,
                                        D, H):
-    x = _inputs(cuda_device, dtype, B, f, n, D, seed=1, grad=True)
-    scale = float(D // H) ** -0.5
+    x = _kernel_inputs(name, cuda_device, dtype, B, f, n, D, H, seed=1)
+    if name.startswith(HEAD_SPLIT) and dtype == torch.bfloat16:
+        tol = 2.5e-1
     ca.reset_launch_counts()
-    got = getattr(ca, name)(*x, heads=H, scale=scale)
+    got = _call(getattr(ca, name), name, x, H)
     torch.cuda.synchronize()
     assert ca.launches[name] == 1
-    want = getattr(ca, f"{name}_plain")(*x, heads=H, scale=scale)
+    want = _call(getattr(ca, f"{name}_plain"), name, x, H)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == dtype and g.shape == w.shape, i
         err = (g.float() - w.float()).abs().max().item()
@@ -105,11 +134,84 @@ def test_cuda_function_grads_match_autograd_of_plain(cuda_device, axis):
 @pytest.mark.parametrize("name,f,n", [("time_attention_fwd", 64, 2),
                                       ("time_attention_bwd", 32, 2),
                                       ("space_attention_fwd", 1, 450),
-                                      ("space_attention_bwd", 1, 450)])
+                                      ("space_attention_bwd", 1, 450),
+                                      ("grouped_attention_fwd", 1, 450),
+                                      ("grouped_attention_bwd", 1, 450),
+                                      ("time_attention_hs_fwd", 170, 2),
+                                      ("time_attention_hs_bwd", 170, 2)])
 def test_cuda_wrapper_raises_on_shapes_the_kernel_cannot_take(cuda_device,
                                                               name, f, n):
-    # more shared memory than the device lets one block opt in to
-    x = _inputs(cuda_device, torch.float32, 1, f, n, 768,
-                grad=name.endswith("bwd"))
+    # more shared memory than the device lets one block opt in to (and,
+    # K4-bwd, more than its 256 keys)
+    x = _kernel_inputs(name, cuda_device, torch.float32, 1, f, n, 768, 12)
     with pytest.raises(RuntimeError, match="launch failed"):
-        getattr(ca, name)(*x, heads=12, scale=0.125)
+        _call(getattr(ca, name), name, x, 12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["grouped_attention", "time_attention_hs"])
+@pytest.mark.parametrize("f,n", [(4, 196), (16, 7), (1, 1)])
+def test_cuda_head_split_function_grads_match_autograd_of_plain(
+        cuda_device, kernel, f, n):
+    x = _inputs(cuda_device, torch.float32, 2, f, n, 768, seed=3, grad=True,
+                heads=12)
+    fn = {"grouped_attention": ca.GroupedAttention,
+          "time_attention_hs": ca.TimeAttentionHS}[kernel]
+    plain = getattr(ca, f"{kernel}_fwd_plain")
+
+    def grads(run):
+        xs = [t.clone().requires_grad_() for t in x[:5]]
+        run(*xs).backward(x[5])
+        return [t.grad for t in xs]
+
+    ca.reset_launch_counts()
+    got = grads(fn.apply)
+    assert ca.launches[f"{kernel}_fwd"] == 1
+    assert ca.launches[f"{kernel}_bwd"] == 1
+    want = grads(plain)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g - w).abs().max().item() <= 1e-4, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["space", "time"])
+def test_cuda_divided_attention_routes_agree(cuda_device, axis):
+    """The head-split op through K4/K5 vs its plain torch route and vs the
+    K1/K2 route of ``divided_attention_bsd``, float32, forward and grads."""
+    from egovlp_tpu_torch.kernels.divided_attention import (
+        divided_attention,
+        divided_attention_bsd,
+    )
+
+    B, H, f, n, hd = 2, 12, 4, 49, 64
+    S, D, scale = 1 + f * n, H * hd, hd ** -0.5
+    rng = np.random.default_rng(4)
+    bsd = [torch.from_numpy(rng.normal(size=(B, S, D))).to(cuda_device,
+                                                            torch.float32)
+           for _ in range(3)]
+
+    def split(t):
+        return t.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+
+    def run(op, xs):
+        xs = [t.clone().requires_grad_() for t in xs]
+        out = op(*xs)
+        (out * torch.cos(out)).sum().backward()
+        return [out.detach()] + [t.grad for t in xs]
+
+    hs = [split(bsd[0]) * scale, split(bsd[1]), split(bsd[2])]
+    ca.reset_launch_counts()
+    got = run(lambda *xs: divided_attention(
+        *xs, frames=f, patches=n, axis=axis, impl="pallas"), hs)
+    name = "grouped_attention" if axis == "space" else "time_attention_hs"
+    assert ca.launches[f"{name}_fwd"] == 1 and ca.launches[f"{name}_bwd"] == 1
+    want = run(lambda *xs: divided_attention(
+        *xs, frames=f, patches=n, axis=axis, impl="xla"), hs)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g - w).abs().max().item() <= 1e-4, i
+    k12 = run(lambda *xs: divided_attention_bsd(
+        *xs, heads=H, frames=f, patches=n, axis=axis, impl="pallas"), bsd)
+    merge = [split(k12[0]), split(k12[1]) / scale, split(k12[2]),
+             split(k12[3])]
+    for i, (g, w) in enumerate(zip(got, merge)):
+        assert (g - w).abs().max().item() <= 1e-4, i

@@ -147,12 +147,12 @@ def test_text_tower_and_embeddings_match_jax(jax_params):
 
 
 def test_attention_impls_agree_on_cpu(jax_params):
-    """'auto', 'pallas', 'xla' and 'mixed' all run the plain twins on a CPU
-    tensor, so they give one result."""
+    """'auto', 'pallas', 'xla', 'mixed' and 'mixed2' all run the plain twins
+    on a CPU tensor, so they give one result."""
     video = torch.from_numpy(np.random.default_rng(2).normal(
         size=(1, 4, RES, RES, 3)).astype(np.float32))
     outs = []
-    for impl in ("auto", "pallas", "xla", "mixed"):
+    for impl in ("auto", "pallas", "xla", "mixed", "mixed2"):
         with torch.inference_mode():
             outs.append(port_model(jax_params, impl).encode_video(video))
     for o in outs[1:]:
