@@ -8,13 +8,20 @@ Phases, each of which passes or raises (any failure exits non-zero):
 1. device: a CUDA device must be present; prints the ``nvidia-smi`` name
    and power limit of the card;
 2. build: compiles the hand-written kernels (``kernels/csrc``, one nvcc
-   per source, sm_90a) and prints the build time;
+   per source, sm_90a) and prints the build time; prints the registers a
+   thread, local (spill) bytes a thread and shared memory of the bf16
+   tensor-core forward kernels (K1-fwd, K4-fwd) at L 196 and 255, hd 64,
+   and fails if the L 196 instantiation spills;
 3. forward kernels: K1-fwd and K2-fwd against their plain PyTorch twins
    on unit-normal inputs, float32 (max abs error <= 1e-4) and bf16
    (<= 2e-2), and every output within a relative L2 error
-   ||kernel - plain|| / ||plain|| of 1e-5 (float32) or 1e-2 (bf16), at
-   B 4 x (f, n) in {(4, 196), (1, 196), (16, 196), (4, 61)} and at the
-   training shape B 32, f 4, n 196; then kernel, plain and library
+   ||kernel - plain|| / ||plain|| of 1e-5 (float32) or 1e-2 (bf16; 1e-3
+   for K1-fwd, K1-bwd and K4-fwd, whose kernels round bf16 where their
+   twins do, so a kernel rounding at another point fails), at
+   B 4 x (f, n) in {(4, 196), (1, 196), (16, 196), (4, 61), (2, 255)}
+   (n 255: the most keys the bf16 K1-fwd takes; forward only) and at the
+   training shape B 32, f 4, n 196; a bf16 K1-fwd or K4-fwd launch at
+   L 256 (257 keys) must raise; then kernel, plain and library
    (``F.scaled_dot_product_attention`` on inputs already laid out) median
    times (CUDA events, 20 runs) and the bound at B 16, whose outputs are
    held to the same limits;
@@ -27,7 +34,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
    (``time_attention_hs``), forward and backward, against their plain
    twins on unit-normal inputs with q already scaled by hd ** -0.5, float32
    and bf16: K4 ``[BH, G, L, 64]`` at L in {1, 4, 16, 61, 196} and G from 1
-   to 196, K5 ``[BH, f, n, 64]`` at f in {1, 4, 16}, and the full-width
+   to 196 (and L 255, forward only), K5 ``[BH, f, n, 64]`` at f in
+   {1, 4, 16}, and the full-width
    shapes of phase 6 (BH 384); max abs error at float32 <= 1e-4 (forward)
    and 2e-4 (backward), at bf16 <= 2e-2 (K4-fwd, as K1-fwd) and 4e-2
    (K5-fwd: 2 to 5 keys, so outputs up to ~5, where one ulp is 3.1e-2),
@@ -35,6 +43,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
    gradients reach ~30, where one ulp is 1.25e-1); the same
    relative L2 limits; timed at ``[192, 4, 196, 64]`` bf16 (B 16 x 12
    heads), the library call being SDPA with one head a group and scale 1;
+   the two tensor-core forward kernels' times are printed beside their
+   scalar bodies' times from ``PERF.md``, SDPA and the bound;
 4. serving slice: the full-width dual encoder of ``configs/eval/egomcq.json``
    in bf16 with seeded random weights (time attention initialised
    non-zero, so the time kernel sees real inputs) behind ``serve()``:
@@ -42,7 +52,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
    for N in {1, 3, 16}.  Checks shapes, finiteness, bucket invariance, the
    kernel launch counts of that run (12 space + 12 time per tower pass),
    and the cosine of each embedding against the plain-attention model
-   (``attention_impl='xla'``) on the same weights; prints latencies;
+   (``attention_impl='xla'``) on the same weights; prints latencies and a
+   ``torch.profiler`` breakdown of 3 bucket-16 ``embed_frames`` calls;
 5. training slice: ``configs/pt/egoclip.json`` at full width in bf16 on
    seeded random weights (time attention random), seeded synthetic EgoClip
    batches (16 clips + 16 scene negatives = 32 a step), EgoNCE, AdamW and
@@ -105,6 +116,12 @@ HS_KERNELS = {
     "time_attention_hs_fwd": "egovlp_tpu/kernels/pallas_attention.py:265",
     "time_attention_hs_bwd": "egovlp_tpu/kernels/pallas_attention.py:278",
 }
+# the bf16 forward kernels that run on the tensor cores, and the time
+# their scalar CUDA-core bodies took at the timed shapes, by this script's
+# median_ms (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W), printed
+# beside the new times
+TENSOR_CORE_FWD = {"space_attention_fwd": 1.1665,
+                   "grouped_attention_fwd": 1.1826}
 FWD = ("space_attention_fwd", "time_attention_fwd")
 BWD = ("space_attention_bwd", "time_attention_bwd")
 HEADS, DIM = 12, 768
@@ -262,6 +279,12 @@ def phase_kernels(ca, smi: str) -> dict:
     tol["grouped_attention_bwd"] = {torch.float32: 2e-4, torch.bfloat16: 2.5e-1}
     tol["time_attention_hs_bwd"] = {torch.float32: 2e-4, torch.bfloat16: 2.5e-1}
     rel_tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    # K1 and K4-fwd round bf16 at their twins' points and read < 1e-4 of
+    # them; a kernel rounding q * scale and taking exp, as K1 once did,
+    # reads ~3e-3
+    rel_tol_rounding = {"space_attention_fwd": 1e-3,
+                        "space_attention_bwd": 1e-3,
+                        "grouped_attention_fwd": 1e-3}
 
     def call(fn, name, x):
         if name in HS_KERNELS:
@@ -282,6 +305,8 @@ def phase_kernels(ca, smi: str) -> dict:
         outs = ("out",) if fwd else ("dq", "dk", "dv", "dcls_k", "dcls_v")
         dtype = x[0].dtype
         t, t_rel = tol[name][dtype], rel_tol[dtype]
+        if dtype == torch.bfloat16:
+            t_rel = rel_tol_rounding.get(name, t_rel)
         ok, errs, detail = True, [], []
         for o, g, w in zip(outs, got, want):
             g, w = g.double(), w.double()
@@ -297,9 +322,12 @@ def phase_kernels(ca, smi: str) -> dict:
         return max(errs)
 
     for name in (*FWD, *BWD):
+        shapes = [(4, 4, 196), (4, 1, 196), (4, 16, 196), (4, 4, 61),
+                  (32, 4, 196)]
+        if name in FWD:  # 256 keys: the most the bf16 K1-fwd takes
+            shapes.append((4, 2, 255))
         for dtype in (torch.float32, torch.bfloat16):
-            for B, f, n in ((4, 4, 196), (4, 1, 196), (4, 16, 196),
-                            (4, 4, 61), (32, 4, 196)):
+            for B, f, n in shapes:
                 x = grid_inputs(B, f, n, dtype, seed=f * 1000 + n + B,
                                 grad=name in BWD)
                 check_kernel(name, x, f"B{B} f{f} n{n}")
@@ -312,13 +340,30 @@ def phase_kernels(ca, smi: str) -> dict:
                              (384, 4, 196)),
                  "time": ((48, 1, 196), (48, 4, 196), (48, 16, 196),
                           (24, 4, 61), (384, 4, 196), (384, 16, 196))}
+    hs_fwd_shapes = {"grouped": ((24, 3, 255),), "time": ()}
     for name in HS_KERNELS:
+        kind = name.split("_")[0]
+        shapes = hs_shapes[kind] + (hs_fwd_shapes[kind]
+                                    if name.endswith("fwd") else ())
         for dtype in (torch.float32, torch.bfloat16):
-            for BH, a, b in hs_shapes[name.split("_")[0]]:
+            for BH, a, b in shapes:
                 x = hs_inputs(BH, a, b, dtype, seed=a * 1000 + b + BH,
                               grad=name.endswith("bwd"))
                 check_kernel(name, x, f"BH{BH} {a}x{b} hd{HD}")
                 del x
+    # past 256 keys the bf16 tensor-core forward kernels refuse the launch
+    for name in TENSOR_CORE_FWD:
+        x = (hs_inputs(24, 2, 256, torch.bfloat16, seed=256)
+             if name in HS_KERNELS
+             else grid_inputs(2, 2, 256, torch.bfloat16, seed=256))
+        try:
+            call(getattr(ca, name), name, x)
+        except RuntimeError as e:
+            print(f"check {name} bf16 L256 (257 keys): raises ({e}) ok",
+                  flush=True)
+        else:
+            raise RuntimeError(f"{name} took L 256 (257 keys) at bf16")
+        del x
 
     rows = {}
     B, f, n = TIMED
@@ -351,6 +396,13 @@ def phase_kernels(ca, smi: str) -> dict:
         print(f"time {name} bf16 {label} f{f} n{n}: kernel {t_kernel:.4f} ms, "
               f"plain {t_plain:.4f} ms, library {t_lib:.4f} ms, bound "
               f"{bound:.4f} ms [{smi}]", flush=True)
+        if name in TENSOR_CORE_FWD:
+            print(f"tensor-core {name} bf16 {label} f{f} n{n}: "
+                  f"{t_kernel:.4f} ms (scalar body "
+                  f"{TENSOR_CORE_FWD[name]:.4f} ms in PERF.md), SDPA "
+                  f"{t_lib:.4f} ms ({t_kernel / t_lib:.2f}x SDPA), bound "
+                  f"{bound:.4f} ms ({bound / t_kernel:.1%} of the kernel's "
+                  f"time) [{smi}]", flush=True)
         rows[name] = {"ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
                       "bound_ms": bound, "bound_by": bound_by,
                       "max_abs_err": err, "dtype": "bfloat16", "shape": shape}
@@ -460,6 +512,8 @@ def phase_slice(ca, smi: str) -> tuple:
                 fn()
                 ts.append((time.perf_counter() - t0) * 1e3)
             lat[f"{kind}_b{n}_ms"] = statistics.median(ts)
+    profile_calls("embed_frames bucket 16",
+                  lambda i: emb.embed_frames(clips[:16]), smi)
     for n in (1, 4, 16):
         v = lat[f"video_b{n}_ms"]
         print(f"latency bucket {n}: embed_frames {v:.2f} ms "
@@ -655,24 +709,34 @@ def phase_train(ca, smi: str) -> dict:
     return counts
 
 
-def profile_steps(model, opt, step, batches, smi: str, n: int = 3) -> None:
-    """Device busy time by kernel, idle share and launches a step over ``n``
-    training steps (``torch.profiler``)."""
+def profile_steps(model, opt, step, batches, smi: str) -> None:
+    """``profile_calls`` over training steps, after a warm one."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from egovlp_tpu_torch.train.recipes import step_generator, to_device
 
     batches = [to_device(b, DEVICE) for b in batches]
     step(model, opt, batches[0], step_generator(DEVICE, 1, 1, 0))  # warm
     torch.cuda.synchronize()
+    def one(i):
+        step(model, opt, batches[i % len(batches)],
+             step_generator(DEVICE, 1, 2, i))
+
+    profile_calls("train step", one, smi)
+
+
+def profile_calls(label: str, fn, smi: str, n: int = 3) -> None:
+    """Device busy time by kernel, idle share and launches a call over ``n``
+    calls ``fn(i)`` (``torch.profiler``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n):
-            step(model, opt, batches[i % len(batches)],
-                 step_generator(DEVICE, 1, 2, i))
+            fn(i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
     # kernels only: spans of annotated host regions (Optimizer.step, ...)
@@ -682,13 +746,14 @@ def profile_steps(model, opt, step, batches, smi: str, n: int = 3) -> None:
             and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in rows) / 1e3 / n
     launches = sum(e.count for e in rows) / n
-    print(f"profile: wall {wall:.2f} ms/step, device busy {busy:.2f} ms/step, "
-          f"idle share {1 - busy / wall:.3f}, kernels {launches:.0f}/step "
-          f"[{smi}]", flush=True)
+    print(f"profile {label}: wall {wall:.2f} ms/call, device busy "
+          f"{busy:.2f} ms/call, idle share {1 - busy / wall:.3f}, kernels "
+          f"{launches:.0f}/call [{smi}]", flush=True)
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:15]:
-        print(f"profile kernel {e.self_device_time_total / 1e3 / n:9.3f} "
-              f"ms/step {e.count / n:6.0f}x  {e.key[:90]}", flush=True)
+        print(f"profile {label} kernel "
+              f"{e.self_device_time_total / 1e3 / n:9.3f} ms/call "
+              f"{e.count / n:6.0f}x  {e.key[:90]}", flush=True)
 
 
 def phase_head_split(ca, smi: str) -> dict:
@@ -813,6 +878,18 @@ def main() -> None:
         check(rc == 0, f"time_attention_fwd launch refused at f {f}: {rc}")
         print(f"launch time_attention_fwd f{f} D{DIM} H{HEADS}: "
               f"{threads.value} threads a CTA [{smi}]", flush=True)
+    for name in TENSOR_CORE_FWD:  # the tensor-core kernels' resources
+        attributes = getattr(lib, f"egovlp_{name}_attributes")
+        for L in (196, 255):
+            regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            rc = attributes(L, HD, ctypes.byref(regs), ctypes.byref(local),
+                            ctypes.byref(smem))
+            check(rc == 0, f"{name} attributes at L {L}: {rc}")
+            print(f"kernel {name} bf16 L{L} hd{HD}: {regs.value} registers "
+                  f"a thread, {local.value} local (spill) bytes a thread, "
+                  f"{smem.value} bytes of shared memory a CTA", flush=True)
+            check(L != 196 or local.value == 0,
+                  f"{name} spills to local memory at L 196, hd {HD}")
 
     rows = phase_kernels(ca, smi)
     serve_counts, _ = phase_slice(ca, smi)

@@ -15,6 +15,11 @@ namespace egovlp {
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
+// K1's softmax runs in base 2, as the Pallas space bodies do: log2(e) is
+// folded into the q scaling before q is rounded, and ln(2) restores dK
+constexpr double kLog2e = 1.4426950408889634;
+constexpr float kLn2 = 0.6931471805599453f;
+
 // Limits of a device that size a launch, read from the runtime once per
 // device (the values do not change while a process runs).  Host threads may
 // launch at once (the ctypes calls release the GIL): std::call_once fills

@@ -5,16 +5,17 @@
 //
 // What it computes: q, k, v, do, dq, dk, dv are [B, G, L, D] (G frames of L
 // patch tokens, D = H * hd, heads sliced from D by stride); cls_k, cls_v are
-// [B, 1, D].  For each (b, frame g, head h), with qs = round(q * scale),
-// K = [cls_k; k[b, g]] and V = [cls_v; v[b, g]] (L + 1 rows):
+// [B, 1, D].  For each (b, frame g, head h), with qs = round(q * scale *
+// log2(e)), K = [cls_k; k[b, g]] and V = [cls_v; v[b, g]] (L + 1 rows):
 //
-//   p  = softmax(qs K^T)                 recomputed, float32
+//   p  = exp2(s - rowmax(s)) / rowsum,  s = qs K^T   recomputed, float32
 //   dp = do V^T
 //   dl = round(p * (dp - rowsum(dp * p)))
-//   dq = dl K * scale,   dK = dl^T qs,   dV = round(p)^T do
+//   dq = dl K * scale,   dK = dl^T qs * ln(2),   dV = round(p)^T do
 //
-// where round() is a cast to the input dtype: the rounding points of the
-// Pallas body (:625-626, :641-643, :653).  dq and the patch rows of dK and
+// where round() is a cast to the input dtype: the base-2 softmax and the
+// rounding points of the Pallas bodies (_v2 :509-530, _v3 :625-666; ln(2)
+// undoes the log2(e) folded into qs).  dq and the patch rows of dK and
 // dV are written in the input dtype.  The CLS rows of dK and dV, this
 // frame's share of the CLS gradients, go to float32 scratch [B, G, D]
 // that the wrapper sums over frames and casts once.  (The Pallas body casts
@@ -35,7 +36,7 @@
 // logits and dp with each lane holding 8 keys in registers (one load of
 // q_d / do_d serves 8 FMAs), takes one float32 softmax pass (the whole key
 // row fits; no online rescale), writes its dq row, and leaves
-// round(q * scale), do, round(p) and dl in its own slice of shared memory.
+// qs, do, round(p) and dl in its own slice of shared memory.
 // After a block barrier every thread adds the chunk's rows into the
 // accumulator entries it owns, one channel d and every (blockDim / hd)-th
 // key, with that channel's q and do values of the chunk in registers; the
@@ -76,7 +77,7 @@ space_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ cls_v, const T* __restrict__ dout,
                            T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
                            float* __restrict__ dcls_k, float* __restrict__ dcls_v,
-                           int G, int L, int D, int H, float scale) {
+                           int G, int L, int D, int H, float scale, float qscale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x / 32;
   const int hd = D / H;
@@ -113,7 +114,7 @@ space_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* q_w = warp_s + static_cast<size_t>(warp) * ws;  // [hd] round(q * scale)
+  float* q_w = warp_s + static_cast<size_t>(warp) * ws;  // [hd] qs
   float* do_w = q_w + hd;                                // [hd] do
   float* p_w = do_w + hd;                                // [lk] round(p)
   float* dl_w = p_w + lk;                                // [lk] dl
@@ -131,7 +132,7 @@ space_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (i < L) {  // the whole warp takes one branch
       const size_t row = grid_off + static_cast<size_t>(i) * D;
       for (int d = lane; d < hd; d += 32) {
-        q_w[d] = round_to<T>(Cvt<T>::to_f(q[row + d]) * scale);
+        q_w[d] = round_to<T>(Cvt<T>::to_f(q[row + d]) * qscale);
         do_w[d] = Cvt<T>::to_f(dout[row + d]);
       }
       __syncwarp();
@@ -155,7 +156,7 @@ space_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < kKeysPerLane; ++c) {
-        s[c] = lane + 32 * c < lk ? expf(s[c] - m) : 0.f;
+        s[c] = lane + 32 * c < lk ? exp2f(s[c] - m) : 0.f;
         sum += s[c];
       }
       const float inv = 1.f / warp_sum(sum);
@@ -192,7 +193,8 @@ space_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // dK += dl^T qs, dV += round(p)^T do over this chunk's rows
+    // dK += dl^T qs (times ln(2) when written), dV += round(p)^T do over
+    // this chunk's rows
     const int nr = min(warps, L - i0);
     if (own_j0 < jstep) {
       float qr[kMaxWarps], gr[kMaxWarps];
@@ -224,11 +226,11 @@ space_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = threadIdx.x; t < lk * hd; t += blockDim.x) {
     const int j = t / hd, d = t % hd;
     if (j == 0) {
-      dcls_k[part_off + d] = dk_acc[t];
+      dcls_k[part_off + d] = dk_acc[t] * kLn2;
       dcls_v[part_off + d] = dv_acc[t];
     } else {
       const size_t dst = grid_off + static_cast<size_t>(j - 1) * D + d;
-      dk[dst] = Cvt<T>::from_f(dk_acc[t]);
+      dk[dst] = Cvt<T>::from_f(dk_acc[t] * kLn2);
       dv[dst] = Cvt<T>::from_f(dv_acc[t]);
     }
   }
@@ -261,7 +263,8 @@ int launch_space_bwd(const void* q, const void* k, const void* v, const void* ck
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(ck), static_cast<const T*>(cv), static_cast<const T*>(dout),
       static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<float*>(dck), static_cast<float*>(dcv), G, L, D, H, scale);
+      static_cast<float*>(dck), static_cast<float*>(dcv), G, L, D, H, scale,
+      static_cast<float>(static_cast<double>(scale) * kLog2e));
   return static_cast<int>(cudaGetLastError());
 }
 

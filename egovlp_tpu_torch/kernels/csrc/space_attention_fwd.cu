@@ -9,27 +9,26 @@
 // `scale`, attend over the L + 1 keys [cls_k; k[b, g]] and return the
 // softmax-weighted sum of [cls_v; v[b, g]].
 //
-// Rounding follows the Pallas body: q * scale is rounded to the input dtype,
-// logits, the row max and the row sum are float32, the unnormalised
-// exponentials are rounded to the input dtype before the P.V sum, and the
-// float32 sum is multiplied by 1 / rowsum before the final cast.
+// Rounding points of the Pallas bodies (:473-480, :590-602): q is scaled by
+// scale * log2(e) and rounded to the input dtype; logits (in log2 units),
+// the row max and the row sum are float32; the exponentials exp2(s - max)
+// are rounded to the input dtype before the P.V sum, and the float32 sum is
+// multiplied by 1 / rowsum before the final cast.
 //
-// What bounds it on an H100: not device memory (each CTA reads its K/V tile
-// of (L+1) x hd once; at L 196, hd 64 that is ~100 FLOP per byte moved) but
-// the CUDA-core FMA rate and shared-memory bandwidth: both products run as
-// scalar FMAs over shared memory, one K or V element read per FMA.
-//
-// Design: one CTA per (b, g, h).  It stages [cls; k] and [cls; v] for its
-// head once in shared memory (rows padded by 4 bytes so the lanes of a warp,
-// which each walk a different key row, hit distinct banks), then each of
-// its 8 warps takes query rows in turn: the lanes split the L + 1 keys for
-// the logits and the hd output columns for P.V.  One float32 softmax pass
-// per row, with no online rescale, since the whole key row fits.  The
-// ragged edge of L needs no mask: every loop is bounded by L exactly.
-// Tensor-core (wgmma) and TMA versions are later work.
+// bf16 launches run the tensor-core body of attention_fwd_mma.cuh (the
+// kSpace policy), which says what bounds this kernel and what its design
+// does about it.  float32 launches keep the scalar body below (tensor
+// cores at float32 would be TF32): one CTA per (b, g, h) stages [cls; k]
+// and [cls; v] for its head in shared memory (rows padded by one float so the
+// lanes of a warp, which each walk a different key row, hit distinct
+// banks), then each of its 8 warps takes query rows in turn: the lanes split
+// the L + 1 keys for the logits and the hd output columns for P.V, as
+// scalar FMAs over shared memory.  One float32 softmax pass per row, with
+// no online rescale, since the whole key row fits.
 
 #include <math.h>
 
+#include "attention_fwd_mma.cuh"
 #include "common.cuh"
 
 namespace egovlp {
@@ -37,31 +36,27 @@ namespace {
 
 constexpr int kSpaceWarps = 8;
 
-template <typename T>
-__host__ __device__ inline int space_row_stride(int hd) {
-  return hd + 4 / static_cast<int>(sizeof(T));
-}
+// rows of the staged keys and values padded by one float
+__host__ __device__ inline int space_row_stride(int hd) { return hd + 1; }
 
-template <typename T>
 inline size_t space_smem_bytes(int L, int hd) {
   const size_t lk = static_cast<size_t>(L) + 1;
-  return 2 * lk * space_row_stride<T>(hd) * sizeof(T) +
-         static_cast<size_t>(kSpaceWarps) * (hd + lk) * sizeof(float);
+  return (2 * lk * space_row_stride(hd) + static_cast<size_t>(kSpaceWarps) * (hd + lk)) *
+         sizeof(float);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kSpaceWarps * 32)
-space_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const T* __restrict__ cls_k,
-                           const T* __restrict__ cls_v, T* __restrict__ out,
-                           int G, int L, int D, int H, float scale) {
+space_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ cls_k,
+                           const float* __restrict__ cls_v, float* __restrict__ out,
+                           int G, int L, int D, int H, float qscale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hd = D / H;
   const int lk = L + 1;
-  const int ks = space_row_stride<T>(hd);
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + static_cast<size_t>(lk) * ks;
-  float* warp_s = reinterpret_cast<float*>(v_s + static_cast<size_t>(lk) * ks);
+  const int ks = space_row_stride(hd);
+  float* k_s = reinterpret_cast<float*>(smem);
+  float* v_s = k_s + static_cast<size_t>(lk) * ks;
+  float* warp_s = v_s + static_cast<size_t>(lk) * ks;
 
   const int h = blockIdx.x % H;
   const int bg = blockIdx.x / H;  // b * G + g
@@ -89,15 +84,14 @@ space_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = warp; i < L; i += kSpaceWarps) {
     const size_t row = grid_off + static_cast<size_t>(i) * D;
-    for (int d = lane; d < hd; d += 32)
-      q_s[d] = round_to<T>(Cvt<T>::to_f(q[row + d]) * scale);
+    for (int d = lane; d < hd; d += 32) q_s[d] = q[row + d] * qscale;
     __syncwarp();
 
     float m = -INFINITY;
     for (int j = lane; j < lk; j += 32) {
-      const T* kr = k_s + j * ks;
+      const float* kr = k_s + j * ks;
       float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(q_s[d], Cvt<T>::to_f(kr[d]), s);
+      for (int d = 0; d < hd; ++d) s = fmaf(q_s[d], kr[d], s);
       p_s[j] = s;
       m = fmaxf(m, s);
     }
@@ -105,9 +99,9 @@ space_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     float sum = 0.f;
     for (int j = lane; j < lk; j += 32) {
-      const float e = expf(p_s[j] - m);
+      const float e = exp2f(p_s[j] - m);
       sum += e;
-      p_s[j] = round_to<T>(e);
+      p_s[j] = e;
     }
     sum = warp_sum(sum);
     __syncwarp();
@@ -115,29 +109,29 @@ space_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / sum;
     for (int d = lane; d < hd; d += 32) {
       float acc = 0.f;
-      for (int j = 0; j < lk; ++j) acc = fmaf(p_s[j], Cvt<T>::to_f(v_s[j * ks + d]), acc);
-      out[row + d] = Cvt<T>::from_f(acc * inv);
+      for (int j = 0; j < lk; ++j) acc = fmaf(p_s[j], v_s[j * ks + d], acc);
+      out[row + d] = acc * inv;
     }
     __syncwarp();
   }
 }
 
-template <typename T>
-int launch_space(const void* q, const void* k, const void* v, const void* ck,
-                 const void* cv, void* out, int B, int G, int L, int D, int H,
-                 float scale, int device, cudaStream_t stream) {
-  const size_t smem = space_smem_bytes<T>(L, D / H);
+int launch_space_f32(const void* q, const void* k, const void* v, const void* ck,
+                     const void* cv, void* out, int B, int G, int L, int D, int H,
+                     float scale, int device, cudaStream_t stream) {
+  const size_t smem = space_smem_bytes(L, D / H);
   cudaError_t err = check_smem(smem, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(space_attention_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  err = cudaFuncSetAttribute(space_attention_fwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(B) * G * H);
-  space_attention_fwd_kernel<T><<<grid, kSpaceWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(ck), static_cast<const T*>(cv), static_cast<T*>(out), G, L,
-      D, H, scale);
+  space_attention_fwd_kernel<<<grid, kSpaceWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(ck),
+      static_cast<const float*>(cv), static_cast<float*>(out), G, L, D, H,
+      static_cast<float>(static_cast<double>(scale) * kLog2e));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -153,10 +147,18 @@ extern "C" int egovlp_space_attention_fwd(const void* q, const void* k, const vo
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == egovlp::kBFloat16)
-    return egovlp::launch_space<__nv_bfloat16>(q, k, v, cls_k, cls_v, out, B, G, L, D, H,
-                                               scale, device, s);
+    return egovlp::launch_attention_fwd_mma<egovlp::FwdRounding::kSpace>(
+        q, k, v, cls_k, cls_v, out, B, G, L, D, H, scale, device, s);
   if (dtype == egovlp::kFloat32)
-    return egovlp::launch_space<float>(q, k, v, cls_k, cls_v, out, B, G, L, D, H, scale,
-                                       device, s);
+    return egovlp::launch_space_f32(q, k, v, cls_k, cls_v, out, B, G, L, D, H, scale,
+                                    device, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Registers a thread, local (spill) bytes a thread and shared memory of the
+// bf16 kernel a launch at (L, hd) takes; returns a cudaError_t code.
+extern "C" int egovlp_space_attention_fwd_attributes(int L, int hd, int* regs,
+                                                     int* local_bytes, int* smem) {
+  return egovlp::attention_fwd_mma_attributes<egovlp::FwdRounding::kSpace>(L, hd, regs,
+                                                                           local_bytes, smem);
 }

@@ -22,6 +22,11 @@ CLS ``[BH, 1, hd]``.  A wrapper given CUDA tensors launches its kernel
 version beside it.  ``launches`` counts kernel launches per wrapper.  As
 the JAX ``custom_vjp`` does, a Function saves only its inputs and the
 backward kernel recomputes the probabilities.
+
+At bf16, K1-fwd and K4-fwd run on the tensor cores (one body,
+``csrc/attention_fwd_mma.cuh``), which take at most 256 keys (L + 1) and
+hd a multiple of 16 up to 128: any other bf16 shape raises.  Their float32
+launches, and every other kernel, run scalar CUDA-core bodies.
 """
 
 from __future__ import annotations
@@ -29,6 +34,11 @@ from __future__ import annotations
 import torch
 
 from egovlp_tpu_torch.kernels._build import load_library
+
+# K1's softmax runs in base 2: log2(e) is folded into the q scaling before
+# q is rounded, and ln(2) restores dK's scale (pallas_attention.py :339-340)
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
 launches = {"space_attention_fwd": 0, "time_attention_fwd": 0,
             "space_attention_bwd": 0, "time_attention_bwd": 0,
@@ -120,7 +130,11 @@ def _bwd(name, plain, part_shape, x, **kw):
 
 def space_attention_fwd_plain(q, k, v, cls_k, cls_v, *, heads: int,
                               scale: float) -> torch.Tensor:
-    """Plain PyTorch K1: the kernel's math, rounding points included."""
+    """Plain PyTorch K1 with the rounding points of the Pallas bodies
+    (``_mk_space_fwd_bsd_v2`` :473-480, ``_v3`` :590-602): ``qs =
+    round(q * scale * log2(e))``, float32 logits in log2 units, ``e =
+    exp2(logits - rowmax)`` rounded before the P.V sum, which is multiplied
+    by ``1 / rowsum(e)`` before the one cast."""
     B, G, L, D = q.shape
     hd = D // heads
     dt = q.dtype
@@ -133,9 +147,9 @@ def space_attention_fwd_plain(q, k, v, cls_k, cls_v, *, heads: int,
         return torch.cat([c, split(t)], dim=3).float()
 
     kc, vc = with_cls(cls_k, k), with_cls(cls_v, v)
-    qs = (split(q).float() * scale).to(dt).float()
+    qs = (split(q).float() * (scale * LOG2E)).to(dt).float()
     logits = qs @ kc.transpose(-1, -2)
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    e = torch.exp2(logits - logits.amax(dim=-1, keepdim=True))
     inv = 1.0 / e.sum(dim=-1, keepdim=True)
     out = (e.to(dt).float() @ vc) * inv
     return out.permute(0, 1, 3, 2, 4).reshape(B, G, L, D).to(dt)
@@ -150,9 +164,13 @@ def space_attention_fwd(q, k, v, cls_k, cls_v, *, heads: int,
 
 def space_attention_bwd_plain(q, k, v, cls_k, cls_v, do, *, heads: int,
                               scale: float):
-    """Plain PyTorch K1-bwd: the kernel's math, rounding points included
-    (``round(q * scale)``, ``dl`` and ``p`` rounded to the input dtype before
-    their products); the CLS grads are summed over frames in float32."""
+    """Plain PyTorch K1-bwd with the rounding points of the Pallas bodies
+    (``_mk_space_bwd_bsd_v2`` :509-530, ``_v3`` :625-666): ``qs =
+    round(q * scale * log2(e))``, ``p = exp2(logits - rowmax) / rowsum``,
+    ``dl`` and ``p`` rounded to the input dtype before their products,
+    ``dq = (dl K) * scale``, ``dK = (dl^T qs) * ln(2)``; the CLS grads are
+    summed over frames in float32 (the Pallas wrapper rounds each frame's
+    share first, :838)."""
     B, G, L, D = q.shape
     hd = D // heads
     dt = q.dtype
@@ -168,15 +186,15 @@ def space_attention_bwd_plain(q, k, v, cls_k, cls_v, do, *, heads: int,
         return t.permute(0, 1, 3, 2, 4).reshape(B, G, -1, D)
 
     kc, vc = with_cls(cls_k, k), with_cls(cls_v, v)
-    qs = (split(q) * scale).to(dt).float()
+    qs = (split(q) * (scale * LOG2E)).to(dt).float()
     gr = split(do)
     logits = qs @ kc.transpose(-1, -2)
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    e = torch.exp2(logits - logits.amax(dim=-1, keepdim=True))
     p = e * (1.0 / e.sum(dim=-1, keepdim=True))
     dp = gr @ vc.transpose(-1, -2)
     dl = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
     dq = merge((dl @ kc) * scale)
-    dkc = merge(dl.transpose(-1, -2) @ qs)
+    dkc = merge((dl.transpose(-1, -2) @ qs) * LN2)
     dvc = merge(p.to(dt).float().transpose(-1, -2) @ gr)
     return (dq.to(dt), dkc[:, :, 1:].to(dt), dvc[:, :, 1:].to(dt),
             dkc[:, :, :1].sum(dim=1).to(dt), dvc[:, :, :1].sum(dim=1).to(dt))

@@ -7,13 +7,21 @@ without the suite's jax-based ``conftest.py``:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
+The bf16 forward kernels K1-fwd and K4-fwd run on the tensor cores
+(``csrc/attention_fwd_mma.cuh``); their float32 launches keep the scalar
+bodies.
+
 Tolerances: float32 1e-4 (same math, another summation order); bf16 2e-2
 for the forward kernels and 5e-2 for the backward kernels on unit-normal
 inputs (one bf16 rounding of each output, plus rounding points that a
 different summation order can flip; the backward rounds ``dl`` before two
-more products).  The head-split backward kernels (K4, K5) take q already
-scaled and do not multiply dq by the scale, so their gradients run ~8x
-larger (up to ~30, where one bf16 ulp is 0.125): bf16 2.5e-1 for them.
+more products).  bf16 K1-fwd, K1-bwd and K4-fwd also keep every output
+within relative L2 1e-3 of the twin: they round where the twin rounds and
+read < 1e-4, while a kernel that rounds ``q * scale`` and takes ``exp``,
+as K1 once did, reads ~3e-3.  The head-split backward kernels (K4, K5)
+take q already scaled and do not multiply dq by the scale, so their
+gradients run ~8x larger (up to ~30, where one bf16 ulp is 0.125): bf16
+2.5e-1 for them.
 """
 
 import numpy as np
@@ -87,6 +95,29 @@ def test_cuda_kernel_matches_plain(cuda_device, name, dtype, tol, B, f, n, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["space_attention_fwd", "grouped_attention_fwd"])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("L", [1, 4, 7, 50, 61, 196, 255])
+def test_cuda_bf16_tensor_core_fwd_matches_plain(cuda_device, name, hd, L):
+    # every key-tile count the kernel instantiates (L + 1 from 2 to 256
+    # keys: 1 to 16 tiles of 16, ragged and full), two heads a row for K1
+    B, G, H = 2, 3, 2
+    x = _kernel_inputs(name, cuda_device, torch.bfloat16, B, G, L, H * hd, H,
+                       seed=L + hd)
+    ca.reset_launch_counts()
+    got = _call(getattr(ca, name), name, x, H)
+    torch.cuda.synchronize()
+    assert ca.launches[name] == 1
+    want = _call(getattr(ca, f"{name}_plain"), name, x, H)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    g, w = got.double(), want.double()
+    assert bool(torch.isfinite(g).all())
+    err = (g - w).abs().max().item()
+    rel = ((g - w).norm() / w.norm()).item()
+    assert err <= 2e-2 and rel <= 1e-3, (err, rel)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["space_attention_bwd", "time_attention_bwd",
                                   "grouped_attention_bwd",
                                   "time_attention_hs_bwd"])
@@ -107,6 +138,10 @@ def test_cuda_bwd_kernel_matches_plain(cuda_device, name, dtype, tol, B, f, n,
         assert g.dtype == dtype and g.shape == w.shape, i
         err = (g.float() - w.float()).abs().max().item()
         assert err <= tol, (i, err)
+        if name == "space_attention_bwd" and dtype == torch.bfloat16:
+            g, w = g.double(), w.double()
+            rel = ((g - w).norm() / w.norm()).item()
+            assert rel <= 1e-3, (i, rel)
 
 
 @pytest.mark.cuda
@@ -130,20 +165,30 @@ def test_cuda_function_grads_match_autograd_of_plain(cuda_device, axis):
         assert (g - w).abs().max().item() <= 1e-4, i
 
 
+F32, BF16 = torch.float32, torch.bfloat16
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,f,n", [("time_attention_fwd", 64, 2),
-                                      ("time_attention_bwd", 32, 2),
-                                      ("space_attention_fwd", 1, 450),
-                                      ("space_attention_bwd", 1, 450),
-                                      ("grouped_attention_fwd", 1, 450),
-                                      ("grouped_attention_bwd", 1, 450),
-                                      ("time_attention_hs_fwd", 170, 2),
-                                      ("time_attention_hs_bwd", 170, 2)])
+@pytest.mark.parametrize("name,dtype,f,n,D", [
+    ("time_attention_fwd", F32, 64, 2, 768),
+    ("time_attention_bwd", F32, 32, 2, 768),
+    ("space_attention_fwd", F32, 1, 450, 768),
+    ("space_attention_bwd", F32, 1, 450, 768),
+    ("grouped_attention_fwd", F32, 1, 450, 768),
+    ("grouped_attention_bwd", F32, 1, 450, 768),
+    ("time_attention_hs_fwd", F32, 170, 2, 768),
+    ("time_attention_hs_bwd", F32, 170, 2, 768),
+    ("space_attention_fwd", BF16, 1, 256, 768),
+    ("grouped_attention_fwd", BF16, 1, 256, 768),
+    ("space_attention_fwd", BF16, 2, 196, 12 * 24),
+    ("grouped_attention_fwd", BF16, 2, 196, 12 * 24)])
 def test_cuda_wrapper_raises_on_shapes_the_kernel_cannot_take(cuda_device,
-                                                              name, f, n):
-    # more shared memory than the device lets one block opt in to (and,
-    # K4-bwd, more than its 256 keys)
-    x = _kernel_inputs(name, cuda_device, torch.float32, 1, f, n, 768, 12)
+                                                              name, dtype, f,
+                                                              n, D):
+    # float32: more shared memory than the device lets one block opt in to
+    # (and, K4-bwd, more than its 256 keys); bf16 tensor-core forward: more
+    # than 256 keys (L + 1 = 257), or hd 24, not a multiple of 16
+    x = _kernel_inputs(name, cuda_device, dtype, 1, f, n, D, 12)
     with pytest.raises(RuntimeError, match="launch failed"):
         _call(getattr(ca, name), name, x, 12)
 
