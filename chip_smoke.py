@@ -10,18 +10,19 @@ Phases, each of which passes or raises (any failure exits non-zero):
 2. build: compiles the hand-written kernels (``kernels/csrc``, one nvcc
    per source, sm_90a) and prints the build time; prints the registers a
    thread, local (spill) bytes a thread and shared memory of the bf16
-   tensor-core forward kernels (K1-fwd, K4-fwd) at L 196 and 255, hd 64,
-   and fails if the L 196 instantiation spills;
+   tensor-core kernels (K1-fwd, K4-fwd, K1-bwd, K4-bwd) at L 196 and 255,
+   hd 64, and fails if an L 196 instantiation spills;
 3. forward kernels: K1-fwd and K2-fwd against their plain PyTorch twins
    on unit-normal inputs, float32 (max abs error <= 1e-4) and bf16
    (<= 2e-2), and every output within a relative L2 error
    ||kernel - plain|| / ||plain|| of 1e-5 (float32) or 1e-2 (bf16; 1e-3
-   for K1-fwd, K1-bwd and K4-fwd, whose kernels round bf16 where their
-   twins do, so a kernel rounding at another point fails), at
-   B 4 x (f, n) in {(4, 196), (1, 196), (16, 196), (4, 61), (2, 255)}
-   (n 255: the most keys the bf16 K1-fwd takes; forward only) and at the
-   training shape B 32, f 4, n 196; a bf16 K1-fwd or K4-fwd launch at
-   L 256 (257 keys) must raise; then kernel, plain and library
+   for the tensor-core kernels K1-fwd, K1-bwd, K4-fwd and K4-bwd, which
+   round bf16 where their twins do, so a kernel rounding at another point
+   fails), at B 4 x (f, n) in {(4, 196), (1, 196), (16, 196), (4, 61),
+   (2, 255)} (n 255: the most keys the bf16 tensor-core kernels take;
+   forward, and the backward at bf16) and at the training shape B 32, f 4,
+   n 196; a bf16 launch of a tensor-core kernel at L 256 (257 keys) must
+   raise; then kernel, plain and library
    (``F.scaled_dot_product_attention`` on inputs already laid out) median
    times (CUDA events, 20 runs) and the bound at B 16, whose outputs are
    held to the same limits;
@@ -34,17 +35,17 @@ Phases, each of which passes or raises (any failure exits non-zero):
    (``time_attention_hs``), forward and backward, against their plain
    twins on unit-normal inputs with q already scaled by hd ** -0.5, float32
    and bf16: K4 ``[BH, G, L, 64]`` at L in {1, 4, 16, 61, 196} and G from 1
-   to 196 (and L 255, forward only), K5 ``[BH, f, n, 64]`` at f in
-   {1, 4, 16}, and the full-width
-   shapes of phase 6 (BH 384); max abs error at float32 <= 1e-4 (forward)
-   and 2e-4 (backward), at bf16 <= 2e-2 (K4-fwd, as K1-fwd) and 4e-2
-   (K5-fwd: 2 to 5 keys, so outputs up to ~5, where one ulp is 3.1e-2),
-   and 2.5e-1 (backward: their dq is not multiplied by the scale, so
-   gradients reach ~30, where one ulp is 1.25e-1); the same
-   relative L2 limits; timed at ``[192, 4, 196, 64]`` bf16 (B 16 x 12
-   heads), the library call being SDPA with one head a group and scale 1;
-   the two tensor-core forward kernels' times are printed beside their
-   scalar bodies' times from ``PERF.md``, SDPA and the bound;
+   to 196 (and L 255, forward and bf16 backward), K5 ``[BH, f, n, 64]``
+   at f in {1, 4, 16}, and the full-width shapes of phase 6 (BH 384); max
+   abs error at float32 <= 1e-4 (forward) and 2e-4 (backward), at bf16
+   <= 2e-2 (K4-fwd, as K1-fwd) and 4e-2 (K5-fwd: 2 to 5 keys, so outputs
+   up to ~5, where one ulp is 3.1e-2), and 2.5e-1 (backward: their dq is
+   not multiplied by the scale, so gradients reach ~30, where one ulp is
+   1.25e-1); the same relative L2 limits; timed at ``[192, 4, 196, 64]``
+   bf16 (B 16 x 12 heads), the library call being SDPA with one head a
+   group and scale 1;
+   the four tensor-core kernels' times are printed beside their scalar
+   bodies' times from ``PERF.md``, SDPA and the bound;
 4. serving slice: the full-width dual encoder of ``configs/eval/egomcq.json``
    in bf16 with seeded random weights (time attention initialised
    non-zero, so the time kernel sees real inputs) behind ``serve()``:
@@ -116,12 +117,14 @@ HS_KERNELS = {
     "time_attention_hs_fwd": "egovlp_tpu/kernels/pallas_attention.py:265",
     "time_attention_hs_bwd": "egovlp_tpu/kernels/pallas_attention.py:278",
 }
-# the bf16 forward kernels that run on the tensor cores, and the time
-# their scalar CUDA-core bodies took at the timed shapes, by this script's
-# median_ms (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W), printed
-# beside the new times
-TENSOR_CORE_FWD = {"space_attention_fwd": 1.1665,
-                   "grouped_attention_fwd": 1.1826}
+# the bf16 kernels that run on the tensor cores, and the time their scalar
+# CUDA-core bodies took at the timed shapes, by this script's median_ms
+# (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W), printed beside the
+# new times
+TENSOR_CORE = {"space_attention_fwd": 1.1665,
+               "grouped_attention_fwd": 1.1826,
+               "space_attention_bwd": 2.8054,
+               "grouped_attention_bwd": 2.8622}
 FWD = ("space_attention_fwd", "time_attention_fwd")
 BWD = ("space_attention_bwd", "time_attention_bwd")
 HEADS, DIM = 12, 768
@@ -279,12 +282,10 @@ def phase_kernels(ca, smi: str) -> dict:
     tol["grouped_attention_bwd"] = {torch.float32: 2e-4, torch.bfloat16: 2.5e-1}
     tol["time_attention_hs_bwd"] = {torch.float32: 2e-4, torch.bfloat16: 2.5e-1}
     rel_tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-    # K1 and K4-fwd round bf16 at their twins' points and read < 1e-4 of
-    # them; a kernel rounding q * scale and taking exp, as K1 once did,
-    # reads ~3e-3
-    rel_tol_rounding = {"space_attention_fwd": 1e-3,
-                        "space_attention_bwd": 1e-3,
-                        "grouped_attention_fwd": 1e-3}
+    # the tensor-core kernels round bf16 at their twins' points and read
+    # ~1e-4 of them; a kernel rounding q * scale and taking exp, as K1 once
+    # did, or a K4-bwd taking dV from round(p), reads 2e-3 to 4e-3
+    rel_tol_rounding = dict.fromkeys(TENSOR_CORE, 1e-3)
 
     def call(fn, name, x):
         if name in HS_KERNELS:
@@ -324,10 +325,12 @@ def phase_kernels(ca, smi: str) -> dict:
     for name in (*FWD, *BWD):
         shapes = [(4, 4, 196), (4, 1, 196), (4, 16, 196), (4, 4, 61),
                   (32, 4, 196)]
-        if name in FWD:  # 256 keys: the most the bf16 K1-fwd takes
-            shapes.append((4, 2, 255))
         for dtype in (torch.float32, torch.bfloat16):
-            for B, f, n in shapes:
+            # 256 keys: the most the bf16 tensor-core kernels take (the
+            # float32 K1-bwd's buffers pass the shared-memory limit there)
+            edge = ([(4, 2, 255)] if name in FWD or dtype == torch.bfloat16
+                    else [])
+            for B, f, n in shapes + edge:
                 x = grid_inputs(B, f, n, dtype, seed=f * 1000 + n + B,
                                 grad=name in BWD)
                 check_kernel(name, x, f"B{B} f{f} n{n}")
@@ -340,22 +343,23 @@ def phase_kernels(ca, smi: str) -> dict:
                              (384, 4, 196)),
                  "time": ((48, 1, 196), (48, 4, 196), (48, 16, 196),
                           (24, 4, 61), (384, 4, 196), (384, 16, 196))}
-    hs_fwd_shapes = {"grouped": ((24, 3, 255),), "time": ()}
+    hs_edge_shapes = {"grouped": ((24, 3, 255),), "time": ()}
     for name in HS_KERNELS:
         kind = name.split("_")[0]
-        shapes = hs_shapes[kind] + (hs_fwd_shapes[kind]
-                                    if name.endswith("fwd") else ())
         for dtype in (torch.float32, torch.bfloat16):
-            for BH, a, b in shapes:
+            edge = (hs_edge_shapes[kind] if name.endswith("fwd")
+                    or dtype == torch.bfloat16 else ())
+            for BH, a, b in hs_shapes[kind] + edge:
                 x = hs_inputs(BH, a, b, dtype, seed=a * 1000 + b + BH,
                               grad=name.endswith("bwd"))
                 check_kernel(name, x, f"BH{BH} {a}x{b} hd{HD}")
                 del x
-    # past 256 keys the bf16 tensor-core forward kernels refuse the launch
-    for name in TENSOR_CORE_FWD:
-        x = (hs_inputs(24, 2, 256, torch.bfloat16, seed=256)
+    # past 256 keys the bf16 tensor-core kernels refuse the launch
+    for name in TENSOR_CORE:
+        bwd = name.endswith("bwd")
+        x = (hs_inputs(24, 2, 256, torch.bfloat16, seed=256, grad=bwd)
              if name in HS_KERNELS
-             else grid_inputs(2, 2, 256, torch.bfloat16, seed=256))
+             else grid_inputs(2, 2, 256, torch.bfloat16, seed=256, grad=bwd))
         try:
             call(getattr(ca, name), name, x)
         except RuntimeError as e:
@@ -396,10 +400,10 @@ def phase_kernels(ca, smi: str) -> dict:
         print(f"time {name} bf16 {label} f{f} n{n}: kernel {t_kernel:.4f} ms, "
               f"plain {t_plain:.4f} ms, library {t_lib:.4f} ms, bound "
               f"{bound:.4f} ms [{smi}]", flush=True)
-        if name in TENSOR_CORE_FWD:
+        if name in TENSOR_CORE:
             print(f"tensor-core {name} bf16 {label} f{f} n{n}: "
                   f"{t_kernel:.4f} ms (scalar body "
-                  f"{TENSOR_CORE_FWD[name]:.4f} ms in PERF.md), SDPA "
+                  f"{TENSOR_CORE[name]:.4f} ms in PERF.md), SDPA "
                   f"{t_lib:.4f} ms ({t_kernel / t_lib:.2f}x SDPA), bound "
                   f"{bound:.4f} ms ({bound / t_kernel:.1%} of the kernel's "
                   f"time) [{smi}]", flush=True)
@@ -878,7 +882,7 @@ def main() -> None:
         check(rc == 0, f"time_attention_fwd launch refused at f {f}: {rc}")
         print(f"launch time_attention_fwd f{f} D{DIM} H{HEADS}: "
               f"{threads.value} threads a CTA [{smi}]", flush=True)
-    for name in TENSOR_CORE_FWD:  # the tensor-core kernels' resources
+    for name in TENSOR_CORE:  # the tensor-core kernels' resources
         attributes = getattr(lib, f"egovlp_{name}_attributes")
         for L in (196, 255):
             regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()

@@ -35,7 +35,8 @@ _BWD = ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I)
 # head-split kernels: [BH, G, L, hd] (K4) or [BH, f, n, hd] (K5), q scaled
 _HS_FWD = ([_P] * 6 + [_I] * 4 + [_I, _I, _P], _I)
 _HS_BWD = ([_P] * 11 + [_I] * 4 + [_I, _I, _P], _I)
-# (L, hd) -> registers, local bytes and shared memory of a bf16 forward
+# (L, hd) -> registers, local bytes and shared memory of a bf16
+# tensor-core kernel
 _ATTRIBUTES = ([_I, _I] + [ctypes.POINTER(_I)] * 3, _I)
 _SIGNATURES = {
     "egovlp_space_attention_fwd": _FWD,
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "egovlp_time_attention_fwd_threads": ([_I] * 4 + [ctypes.POINTER(_I)], _I),
     "egovlp_space_attention_fwd_attributes": _ATTRIBUTES,
     "egovlp_grouped_attention_fwd_attributes": _ATTRIBUTES,
+    "egovlp_space_attention_bwd_attributes": _ATTRIBUTES,
+    "egovlp_grouped_attention_bwd_attributes": _ATTRIBUTES,
     "egovlp_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

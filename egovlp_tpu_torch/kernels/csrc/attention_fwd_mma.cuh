@@ -52,107 +52,24 @@
 // shapes.  wgmma's 64-row tiles, TMA and a persistent grid are later work.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
 
 #include "common.cuh"
+#include "mma_sync.cuh"
 
 namespace egovlp {
-
-enum class FwdRounding { kSpace, kGrouped };
-
 namespace mma_fwd {
 
-using bf16 = __nv_bfloat16;
+using namespace mma;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxKeys = 256;
 constexpr int kMaxHd = 128;
 
-// staged K / V row stride in elements: hd plus 16 bytes, so the 8 rows an
-// ldmatrix reads start in 8 distinct 16-byte bank groups
-__host__ __device__ constexpr int row_stride(int hd) { return hd + 8; }
-
 // K and V (key_tiles * 16 rows each), then one 16-row output tile a warp
 inline size_t smem_bytes(int key_tiles, int hd) {
   return (2 * static_cast<size_t>(key_tiles) + kWarps) * 16 * row_stride(hd) * sizeof(bf16);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a b for a 16 x 16 bf16 A fragment and a 16 x 8 B fragment (b0, b1)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to nearest-even bf16, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// 2^x; results below 2^-126 flush to zero (under a bf16 ulp of any row
-// sum, which holds the row max's term 1)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// a / b, correctly rounded for a in [0, 1] and b >= 1, from r = 1 / b
-// (correctly rounded) and one FMA correction of the remainder
-__device__ __forceinline__ float div_by(float a, float b, float r) {
-  const float y = a * r;
-  return fmaf(fmaf(-y, b, a), r, y);
 }
 
 // The Q fragments (A of S = Q K^T) of query rows row0 and row0 + 8, straight
@@ -161,7 +78,7 @@ __device__ __forceinline__ float div_by(float a, float b, float r) {
 // zero.  kSpace scales by qscale = scale * log2(e) and rounds to bf16.  All
 // 4 * HD / 16 loads are issued before any is used: scaling each load's
 // value next to it serialised their round trips.
-template <FwdRounding R, int HD>
+template <Rounding R, int HD>
 __device__ __forceinline__ void load_q(uint32_t (&qa)[HD / 16][4], const bf16* q_group, int D,
                                        int L, int row0, int tq, float qscale) {
   const bool in0 = row0 < L, in1 = row0 + 8 < L;
@@ -181,7 +98,7 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[HD / 16][4], const bf16* q
 #pragma unroll
     for (int part = 0; part < 4; ++part) {
       uint32_t u = (part % 2 ? in1 : in0) ? qa[ks][part] : 0u;
-      if (R == FwdRounding::kSpace) {
+      if (R == Rounding::kSpace) {
         const float2 f = unpack_bf16(u);
         u = pack_bf16(f.x * qscale, f.y * qscale);
       }
@@ -194,7 +111,7 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[HD / 16][4], const bf16* q
 // >= the launch's (L + 1) / 16, rounded up).  Two CTAs an SM leave up to 255
 // registers a thread, so no instantiation spills (three would cap them at
 // 168, and the L 196, hd 64 body then spills ~100 bytes and runs slower).
-template <FwdRounding R, int HD, int KT>
+template <Rounding R, int HD, int KT>
 __global__ void __launch_bounds__(kThreads, 2)
 attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ cls_k,
@@ -293,7 +210,7 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       // finite: the CLS key is in every row.  kGrouped takes exp(x) as
       // exp2(x * log2(e)), so both scale the max once
-      const float to_log2 = R == FwdRounding::kSpace ? 1.f : static_cast<float>(kLog2e);
+      const float to_log2 = R == Rounding::kSpace ? 1.f : static_cast<float>(kLog2e);
       const float mx0 = quad_max(m0) * to_log2;
       const float mx1 = quad_max(m1) * to_log2;
       float sum0 = 0.f, sum1 = 0.f;
@@ -311,7 +228,7 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       const float total0 = quad_sum(sum0);
       const float total1 = quad_sum(sum1);
-      if (R == FwdRounding::kSpace) {  // round(e) V, then * (1 / rowsum)
+      if (R == Rounding::kSpace) {  // round(e) V, then * (1 / rowsum)
         norm0 = 1.f / total0;
         norm1 = 1.f / total1;
       } else {  // round(e / rowsum) V
@@ -385,7 +302,7 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 using Kernel = void (*)(const bf16*, const bf16*, const bf16*, const bf16*, const bf16*, bf16*,
                         int, int, int, int, float);
 
-template <FwdRounding R, int HD>
+template <Rounding R, int HD>
 Kernel pick_key_tiles(int nkt) {
   // 13 key tiles = 208 keys hold n 196, the patch count of every model
   // config, in 30 fewer registers a thread than 16 (the most the kernel
@@ -394,7 +311,7 @@ Kernel pick_key_tiles(int nkt) {
 }
 
 // The instantiation for (L, hd), or nullptr where the kernel refuses it.
-template <FwdRounding R>
+template <Rounding R>
 Kernel pick_kernel(int L, int hd) {
   if (L < 1 || L + 1 > kMaxKeys) return nullptr;
   const int nkt = (L + 16) / 16;
@@ -411,8 +328,6 @@ Kernel pick_kernel(int L, int hd) {
   }
 }
 
-inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 }  // namespace mma_fwd
 
 // Launches the bf16 tensor-core forward on [B, G, L, D] (heads sliced from
@@ -421,7 +336,7 @@ inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 1
 // cudaErrorInvalidValue for L + 1 > 256 keys, hd not a multiple of 16 in
 // [16, 128], a pointer not 16-byte aligned, or more shared memory than the
 // device allows a block.
-template <FwdRounding R>
+template <Rounding R>
 int launch_attention_fwd_mma(const void* q, const void* k, const void* v, const void* ck,
                              const void* cv, void* out, int B, int G, int L, int D, int H,
                              float scale, int device, cudaStream_t stream) {
@@ -440,7 +355,7 @@ int launch_attention_fwd_mma(const void* q, const void* k, const void* v, const 
   const unsigned ctas = static_cast<unsigned>(B) * G * H;
   if (ctas == 0) return static_cast<int>(cudaSuccess);
   const float qscale =
-      R == FwdRounding::kSpace ? static_cast<float>(static_cast<double>(scale) * kLog2e) : 1.f;
+      R == Rounding::kSpace ? static_cast<float>(static_cast<double>(scale) * kLog2e) : 1.f;
   kernel<<<ctas, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(ck), static_cast<const bf16*>(cv), static_cast<bf16*>(out), G, L,
@@ -450,7 +365,7 @@ int launch_attention_fwd_mma(const void* q, const void* k, const void* v, const 
 
 // Registers a thread, local (spill) bytes a thread and dynamic shared
 // memory of the instantiation a bf16 launch at (L, hd) takes.
-template <FwdRounding R>
+template <Rounding R>
 int attention_fwd_mma_attributes(int L, int hd, int* regs, int* local_bytes, int* smem) {
   using namespace mma_fwd;
   const Kernel kernel = pick_kernel<R>(L, hd);

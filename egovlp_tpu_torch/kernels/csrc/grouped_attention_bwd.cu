@@ -24,13 +24,15 @@
 // Pallas body writes each group's share in the input dtype and sums those,
 // :139-152; keeping them float32 rounds once instead of G + 1 times.)
 //
-// What bounds it on an H100: as K1-bwd, the CUDA-core FMA rate and
-// shared-memory bandwidth, not device memory: per query row it runs five
-// (L + 1) x hd products (logits, dp, dq, dK, dV), all as scalar FMAs over
-// shared memory.
+// bf16 launches run the tensor-core body of attention_bwd_mma.cuh (the
+// kGrouped policy), which says what bounds this kernel and what its design
+// does about it.  float32 launches keep the scalar body below (tensor cores
+// at float32 would be TF32), bound as K1-bwd's by the CUDA-core FMA rate and
+// shared-memory bandwidth: per query row it runs five (L + 1) x hd
+// products (logits, dp, dq, dK, dV), all as scalar FMAs over shared memory.
 //
-// Design: K1-bwd's, on contiguous [L, hd] groups.  One CTA per (bh, g) with
-// 16 warps, or 8 where 16 warps' row buffers would pass the device's
+// Design of the scalar body: K1-bwd's, on contiguous [L, hd] groups.  One
+// CTA per (bh, g) with 16 warps, or 8 where 16 warps' row buffers would pass the device's
 // opt-in shared-memory limit (float32 at L 196).  The CTA stages K and V in
 // shared memory once (rows padded by 4 bytes) and keeps float32 dK and dV
 // accumulators [L + 1][hd] there too: at L 196 the [L, L + 1] float32
@@ -43,11 +45,11 @@
 // channel d and every (blockDim / hd)-th key): no atomics, and the sums come
 // out in a fixed order.  Any L from 1 to 255 (the ragged edge is masked in
 // the key slots; a chunk of fewer rows than warps leaves warps idle);
-// hd <= 128.  Shared memory at L 196, hd 64: 182 KB (bf16, 16 warps) and
-// 215 KB (float32, 8 warps).  Tensor-core and TMA versions are later work.
+// hd <= 128.  Shared memory at L 196, hd 64: 215 KB (float32, 8 warps).
 
 #include <math.h>
 
+#include "attention_bwd_mma.cuh"
 #include "common.cuh"
 
 namespace egovlp {
@@ -276,11 +278,19 @@ extern "C" int egovlp_grouped_attention_bwd(const void* q, const void* k, const 
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == egovlp::kBFloat16)
-    return egovlp::launch_grouped_bwd<__nv_bfloat16>(q, k, v, cls_k, cls_v, dout, dq, dk,
-                                                     dv, dcls_k, dcls_v, BH, G, L, hd,
-                                                     device, s);
+    return egovlp::launch_attention_bwd_mma<egovlp::Rounding::kGrouped>(
+        q, k, v, cls_k, cls_v, dout, dq, dk, dv, dcls_k, dcls_v, BH, G, L, hd, 1, 1.f, device,
+        s);
   if (dtype == egovlp::kFloat32)
     return egovlp::launch_grouped_bwd<float>(q, k, v, cls_k, cls_v, dout, dq, dk, dv,
                                              dcls_k, dcls_v, BH, G, L, hd, device, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Registers a thread, local (spill) bytes a thread and shared memory of the
+// bf16 kernel a launch at (L, hd) takes; returns a cudaError_t code.
+extern "C" int egovlp_grouped_attention_bwd_attributes(int L, int hd, int* regs,
+                                                       int* local_bytes, int* smem) {
+  return egovlp::attention_bwd_mma_attributes<egovlp::Rounding::kGrouped>(
+      L, hd, regs, local_bytes, smem);
 }

@@ -146,7 +146,7 @@ extern "C" int egovlp_grouped_attention_fwd(const void* q, const void* k, const 
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == egovlp::kBFloat16)
-    return egovlp::launch_attention_fwd_mma<egovlp::FwdRounding::kGrouped>(
+    return egovlp::launch_attention_fwd_mma<egovlp::Rounding::kGrouped>(
         q, k, v, cls_k, cls_v, out, BH, G, L, hd, 1, 1.f, device, s);
   if (dtype == egovlp::kFloat32)
     return egovlp::launch_grouped_f32(q, k, v, cls_k, cls_v, out, BH, G, L, hd, device, s);
@@ -157,6 +157,6 @@ extern "C" int egovlp_grouped_attention_fwd(const void* q, const void* k, const 
 // bf16 kernel a launch at (L, hd) takes; returns a cudaError_t code.
 extern "C" int egovlp_grouped_attention_fwd_attributes(int L, int hd, int* regs,
                                                        int* local_bytes, int* smem) {
-  return egovlp::attention_fwd_mma_attributes<egovlp::FwdRounding::kGrouped>(
+  return egovlp::attention_fwd_mma_attributes<egovlp::Rounding::kGrouped>(
       L, hd, regs, local_bytes, smem);
 }

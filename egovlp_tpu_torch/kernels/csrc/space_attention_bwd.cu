@@ -22,13 +22,16 @@
 // each frame's share to the input dtype before the sum, :663-665; keeping
 // it float32 rounds once instead of G + 1 times.)
 //
-// What bounds it on an H100: as in the forward, the CUDA-core FMA rate and
-// shared-memory bandwidth, not device memory.  Per query row it runs five
+// bf16 launches run the tensor-core body of attention_bwd_mma.cuh (the
+// kSpace policy), which says what bounds this kernel and what its design
+// does about it.  float32 launches keep the scalar body below (tensor cores
+// at float32 would be TF32).  It is bound by the CUDA-core FMA rate and
+// shared-memory bandwidth, not device memory: per query row it runs five
 // (L + 1) x hd products (logits, dp, dq, dK, dV) against the forward's two,
 // all as scalar FMAs over shared memory.
 //
-// Design: one CTA per (b, g, h) with 16 warps, or 8 where 16 warps' row
-// buffers would pass the device's opt-in shared-memory limit (float32 at
+// Design of the scalar body: one CTA per (b, g, h) with 16 warps, or 8
+// where 16 warps' row buffers would pass the device's opt-in shared-memory limit (float32 at
 // L 196).  The CTA stages K and V for its head in shared memory once (rows
 // padded by 4 bytes so lanes that walk different key rows hit distinct
 // banks) and keeps float32 dK and dV accumulators [L + 1][hd] there too.
@@ -41,12 +44,12 @@
 // accumulator entries it owns, one channel d and every (blockDim / hd)-th
 // key, with that channel's q and do values of the chunk in registers; the
 // sums need no atomics and come out in a fixed order (the result does not
-// change from run to run).  Shared memory at L 196, hd 64: 182 KB (bf16,
-// 16 warps) and 215 KB (float32, 8 warps).  Limits: L + 1 <= 256 keys,
-// hd <= 128.  Tensor-core (mma / wgmma) and TMA versions are later work.
+// change from run to run).  Shared memory at L 196, hd 64: 215 KB (float32,
+// 8 warps).  Limits: L + 1 <= 256 keys, hd <= 128.
 
 #include <math.h>
 
+#include "attention_bwd_mma.cuh"
 #include "common.cuh"
 
 namespace egovlp {
@@ -283,11 +286,18 @@ extern "C" int egovlp_space_attention_bwd(const void* q, const void* k, const vo
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == egovlp::kBFloat16)
-    return egovlp::launch_space_bwd<__nv_bfloat16>(q, k, v, cls_k, cls_v, dout, dq, dk, dv,
-                                                   dcls_k, dcls_v, B, G, L, D, H, scale,
-                                                   device, s);
+    return egovlp::launch_attention_bwd_mma<egovlp::Rounding::kSpace>(
+        q, k, v, cls_k, cls_v, dout, dq, dk, dv, dcls_k, dcls_v, B, G, L, D, H, scale, device, s);
   if (dtype == egovlp::kFloat32)
     return egovlp::launch_space_bwd<float>(q, k, v, cls_k, cls_v, dout, dq, dk, dv, dcls_k,
                                            dcls_v, B, G, L, D, H, scale, device, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Registers a thread, local (spill) bytes a thread and shared memory of the
+// bf16 kernel a launch at (L, hd) takes; returns a cudaError_t code.
+extern "C" int egovlp_space_attention_bwd_attributes(int L, int hd, int* regs,
+                                                     int* local_bytes, int* smem) {
+  return egovlp::attention_bwd_mma_attributes<egovlp::Rounding::kSpace>(L, hd, regs,
+                                                                        local_bytes, smem);
 }

@@ -147,7 +147,7 @@ extern "C" int egovlp_space_attention_fwd(const void* q, const void* k, const vo
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == egovlp::kBFloat16)
-    return egovlp::launch_attention_fwd_mma<egovlp::FwdRounding::kSpace>(
+    return egovlp::launch_attention_fwd_mma<egovlp::Rounding::kSpace>(
         q, k, v, cls_k, cls_v, out, B, G, L, D, H, scale, device, s);
   if (dtype == egovlp::kFloat32)
     return egovlp::launch_space_f32(q, k, v, cls_k, cls_v, out, B, G, L, D, H, scale,
@@ -159,6 +159,6 @@ extern "C" int egovlp_space_attention_fwd(const void* q, const void* k, const vo
 // bf16 kernel a launch at (L, hd) takes; returns a cudaError_t code.
 extern "C" int egovlp_space_attention_fwd_attributes(int L, int hd, int* regs,
                                                      int* local_bytes, int* smem) {
-  return egovlp::attention_fwd_mma_attributes<egovlp::FwdRounding::kSpace>(L, hd, regs,
+  return egovlp::attention_fwd_mma_attributes<egovlp::Rounding::kSpace>(L, hd, regs,
                                                                            local_bytes, smem);
 }

@@ -23,10 +23,13 @@ version beside it.  ``launches`` counts kernel launches per wrapper.  As
 the JAX ``custom_vjp`` does, a Function saves only its inputs and the
 backward kernel recomputes the probabilities.
 
-At bf16, K1-fwd and K4-fwd run on the tensor cores (one body,
-``csrc/attention_fwd_mma.cuh``), which take at most 256 keys (L + 1) and
-hd a multiple of 16 up to 128: any other bf16 shape raises.  Their float32
-launches, and every other kernel, run scalar CUDA-core bodies.
+At bf16, K1 and K4 run on the tensor cores, forward and backward (one
+body each way, ``csrc/attention_fwd_mma.cuh`` and
+``csrc/attention_bwd_mma.cuh``), which take at most 256 keys (L + 1) and
+hd a multiple of 16 up to 128 (the backward: within the device's shared
+memory, so L <= 224 at hd 112 and L <= 207 at hd 128): any other bf16
+shape raises.  Their float32 launches, and K2 and K5, run scalar CUDA-core
+bodies.
 """
 
 from __future__ import annotations

@@ -7,21 +7,23 @@ without the suite's jax-based ``conftest.py``:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The bf16 forward kernels K1-fwd and K4-fwd run on the tensor cores
-(``csrc/attention_fwd_mma.cuh``); their float32 launches keep the scalar
-bodies.
+At bf16 K1 and K4, forward and backward, run on the tensor cores
+(``csrc/attention_fwd_mma.cuh``, ``csrc/attention_bwd_mma.cuh``); their
+float32 launches keep the scalar bodies.
 
 Tolerances: float32 1e-4 (same math, another summation order); bf16 2e-2
 for the forward kernels and 5e-2 for the backward kernels on unit-normal
 inputs (one bf16 rounding of each output, plus rounding points that a
 different summation order can flip; the backward rounds ``dl`` before two
-more products).  bf16 K1-fwd, K1-bwd and K4-fwd also keep every output
-within relative L2 1e-3 of the twin: they round where the twin rounds and
-read < 1e-4, while a kernel that rounds ``q * scale`` and takes ``exp``,
-as K1 once did, reads ~3e-3.  The head-split backward kernels (K4, K5)
-take q already scaled and do not multiply dq by the scale, so their
-gradients run ~8x larger (up to ~30, where one bf16 ulp is 0.125): bf16
-2.5e-1 for them.
+more products).  The bf16 tensor-core kernels (K1-fwd, K1-bwd, K4-fwd,
+K4-bwd) also keep every output within relative L2 1e-3 of the twin: they
+round where the twin rounds and read ~1e-4, while a kernel that rounds at
+another point reads 2e-3 to 4e-3: K1 rounding ``q * scale`` and taking
+``exp``, as it once did, or K4-bwd taking dV from ``round(p)`` instead of
+the float32 p.  The head-split backward kernels (K4, K5) take q already
+scaled and do not multiply dq by the scale, so their gradients run ~8x
+larger (up to ~30, where one bf16 ulp is 0.125): bf16 max abs 2.5e-1 for
+them.
 """
 
 import numpy as np
@@ -39,6 +41,7 @@ def cuda_device():
 
 
 HEAD_SPLIT = ("grouped_attention", "time_attention_hs")
+TENSOR_CORE_BWD = ("space_attention_bwd", "grouped_attention_bwd")
 
 
 def _inputs(device, dtype, B, f, n, D, seed=0, grad=False, heads=None):
@@ -138,10 +141,66 @@ def test_cuda_bwd_kernel_matches_plain(cuda_device, name, dtype, tol, B, f, n,
         assert g.dtype == dtype and g.shape == w.shape, i
         err = (g.float() - w.float()).abs().max().item()
         assert err <= tol, (i, err)
-        if name == "space_attention_bwd" and dtype == torch.bfloat16:
+        if name in TENSOR_CORE_BWD and dtype == torch.bfloat16:
             g, w = g.double(), w.double()
             rel = ((g - w).norm() / w.norm()).item()
             assert rel <= 1e-3, (i, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TENSOR_CORE_BWD)
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("L", [1, 4, 7, 50, 61, 196, 255])
+def test_cuda_bf16_tensor_core_bwd_matches_plain(cuda_device, name, hd, L):
+    # query and key tiles from 1 to 16, ragged and full, two heads a row
+    # for K1; dq, dk, dv and both CLS grads
+    B, G, H = 2, 3, 2
+    x = _kernel_inputs(name, cuda_device, torch.bfloat16, B, G, L, H * hd, H,
+                       seed=L + hd)
+    ca.reset_launch_counts()
+    got = _call(getattr(ca, name), name, x, H)
+    torch.cuda.synchronize()
+    assert ca.launches[name] == 1
+    want = _call(getattr(ca, f"{name}_plain"), name, x, H)
+    tol = 2.5e-1 if name.startswith(HEAD_SPLIT) else 5e-2
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, i
+        g, w = g.double(), w.double()
+        assert bool(torch.isfinite(g).all()), i
+        err = (g - w).abs().max().item()
+        rel = ((g - w).norm() / w.norm()).item()
+        assert err <= tol and rel <= 1e-3, (i, err, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TENSOR_CORE_BWD)
+@pytest.mark.parametrize("hd,L", [(96, 255), (128, 207)])
+def test_cuda_bf16_tensor_core_bwd_wide_heads_match_plain(cuda_device, name,
+                                                          hd, L):
+    # past hd 64 phase 2 re-reads the K and V fragments from shared memory;
+    # L 207 is the most keys whose tiles fit shared memory at hd 128
+    x = _kernel_inputs(name, cuda_device, torch.bfloat16, 1, 2, L, 2 * hd, 2,
+                       seed=L + hd)
+    got = _call(getattr(ca, name), name, x, 2)
+    want = _call(getattr(ca, f"{name}_plain"), name, x, 2)
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.double(), w.double()
+        rel = ((g - w).norm() / w.norm()).item()
+        assert bool(torch.isfinite(g).all()) and rel <= 1e-3, (i, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", TENSOR_CORE_BWD)
+def test_cuda_bf16_tensor_core_bwd_is_deterministic(cuda_device, name):
+    # each dq row and each dK / dV row is summed by one warp in a fixed
+    # order, with no atomics: two launches give the same bits
+    x = _kernel_inputs(name, cuda_device, torch.bfloat16, 2, 4, 196, 768, 12,
+                       seed=5)
+    first = _call(getattr(ca, name), name, x, 12)
+    second = _call(getattr(ca, name), name, x, 12)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i
 
 
 @pytest.mark.cuda
@@ -180,14 +239,22 @@ F32, BF16 = torch.float32, torch.bfloat16
     ("time_attention_hs_bwd", F32, 170, 2, 768),
     ("space_attention_fwd", BF16, 1, 256, 768),
     ("grouped_attention_fwd", BF16, 1, 256, 768),
+    ("space_attention_bwd", BF16, 1, 256, 768),
+    ("grouped_attention_bwd", BF16, 1, 256, 768),
     ("space_attention_fwd", BF16, 2, 196, 12 * 24),
-    ("grouped_attention_fwd", BF16, 2, 196, 12 * 24)])
+    ("grouped_attention_fwd", BF16, 2, 196, 12 * 24),
+    ("space_attention_bwd", BF16, 2, 196, 12 * 24),
+    ("grouped_attention_bwd", BF16, 2, 196, 12 * 24),
+    ("space_attention_bwd", BF16, 1, 208, 12 * 128),
+    ("grouped_attention_bwd", BF16, 1, 208, 12 * 128)])
 def test_cuda_wrapper_raises_on_shapes_the_kernel_cannot_take(cuda_device,
                                                               name, dtype, f,
                                                               n, D):
     # float32: more shared memory than the device lets one block opt in to
-    # (and, K4-bwd, more than its 256 keys); bf16 tensor-core forward: more
-    # than 256 keys (L + 1 = 257), or hd 24, not a multiple of 16
+    # (and, K4-bwd, more than its 256 keys); bf16 tensor-core forward and
+    # backward: more than 256 keys (L + 1 = 257), or hd 24, not a multiple
+    # of 16; the backward at hd 128: L 208, whose staged tiles pass the
+    # opt-in shared memory
     x = _kernel_inputs(name, cuda_device, dtype, 1, f, n, D, 12)
     with pytest.raises(RuntimeError, match="launch failed"):
         _call(getattr(ca, name), name, x, 12)
