@@ -2,10 +2,14 @@
 
 Parameters live in float32.  Matmuls run in the compute dtype (bf16 by
 default, ``arch.args.precision``); softmax and LayerNorm statistics run in
-float32 inside the ops that need them.
+float32 inside the ops that need them.  Elementwise ops round where the
+JAX package's do: each op's result in the activation dtype.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -14,11 +18,26 @@ from torch import nn
 
 class Linear(nn.Linear):
     """``nn.Linear`` whose float32 parameters are cast to the activation
-    dtype for the matmul (flax ``Dense(dtype=...)`` semantics)."""
+    dtype for the matmul (flax ``Dense(dtype=...)`` semantics): the product
+    is rounded to the activation dtype, then the bias is added in it."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        y = F.linear(x, self.weight.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+@functools.cache
+def _sqrt_half(dtype: torch.dtype) -> float:
+    return torch.tensor(math.sqrt(0.5)).to(dtype).item()
+
+
+def gelu(h: torch.Tensor) -> torch.Tensor:
+    """Exact-erf GELU as ``jax.nn.gelu(approximate=False)`` computes it:
+    ``(0.5 * h) * erfc(-h * sqrt(0.5))``, with sqrt(0.5) rounded to h's
+    dtype and every op rounded to it (``h * -s`` rounds as ``-h * s``, one
+    op fewer)."""
+    s = _sqrt_half(h.dtype)
+    return (0.5 * h) * torch.special.erfc(h * -s)
 
 
 def compute_dtype(name: str) -> torch.dtype:

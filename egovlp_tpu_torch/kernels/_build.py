@@ -36,7 +36,7 @@ _BWD = ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I)
 _HS_FWD = ([_P] * 6 + [_I] * 4 + [_I, _I, _P], _I)
 _HS_BWD = ([_P] * 11 + [_I] * 4 + [_I, _I, _P], _I)
 # (L, hd) -> registers, local bytes and shared memory of a bf16
-# tensor-core kernel
+# tensor-core kernel; (F, dtype) -> the same of a K2 instantiation
 _ATTRIBUTES = ([_I, _I] + [ctypes.POINTER(_I)] * 3, _I)
 _SIGNATURES = {
     "egovlp_space_attention_fwd": _FWD,
@@ -47,7 +47,8 @@ _SIGNATURES = {
     "egovlp_grouped_attention_bwd": _HS_BWD,
     "egovlp_time_attention_hs_fwd": _HS_FWD,
     "egovlp_time_attention_hs_bwd": _HS_BWD,
-    "egovlp_time_attention_fwd_threads": ([_I] * 4 + [ctypes.POINTER(_I)], _I),
+    "egovlp_time_attention_fwd_attributes": _ATTRIBUTES,
+    "egovlp_time_attention_bwd_attributes": _ATTRIBUTES,
     "egovlp_space_attention_fwd_attributes": _ATTRIBUTES,
     "egovlp_grouped_attention_fwd_attributes": _ATTRIBUTES,
     "egovlp_space_attention_bwd_attributes": _ATTRIBUTES,

@@ -14,194 +14,337 @@
 //
 // As in the Pallas body every value is widened to float32 on load and the
 // math stays float32 up to one cast per output.  dq and the F frame rows of
-// dK and dV are written in the input dtype; the CLS rows, this column's
-// share of the CLS gradients, go to float32 scratch [B, N, D] that the
-// wrapper sums over the N columns and casts once.  (The Pallas small-f body
-// _time_bwd_small_f accumulates with += in the output dtype, rounding at
-// every frame in bf16; this kernel and its plain twin round once.)
+// dK and dV are written in the input dtype; the CLS rows, summed over a run
+// of kRun consecutive patch columns in float32, go to float32 scratch
+// [B, ceil(N / kRun), D] that the wrapper sums over the runs and casts
+// once.  (The Pallas wrapper rounds each n-block's share to the output
+// dtype before its sum; this kernel and its plain twin round once.)
 //
-// What bounds it on an H100: device memory.  Each element of q, k, v and do
-// takes part in only F + 1 multiply-adds per product; the kernel has to
-// read those four and write dq, dk, dv once, with coalesced accesses.
+// What bounds it on an H100: device memory.  Each query meets F + 1 keys:
+// ~2.5 FLOP a byte.  The kernel has to read q, k, v, do and write dq, dk,
+// dv once at the card's memory rate.
 //
-// Design: one CTA per (b, patch column j), covering all H heads, as in the
-// forward.  Each frame row of the column is a contiguous D-wide row in
-// memory, so the CTA stages q (pre-scaled), do, [cls_k; k] and [cls_v; v]
-// as whole float32 rows in shared memory with coalesced loads (rows padded
-// by one float so threads on different rows hit different banks).  Threads
-// then take (head, query, key) logit and dp entries, (head, query) softmax
-// rows, and (frame, channel) outputs in turn; the stores are contiguous
-// D-wide rows again.  Shared memory grows as (4F + 2)(D + 1) + 2 H F (F + 1)
-// floats: 56 KB at F 4 and 224 KB at F 16 (D 768, 12 heads).
+// Design: the 16-byte streaming body of time_attention_stream.cuh, as in
+// the forward.  One warp walks a run of kRun consecutive patch columns of
+// one b, in a fixed order, for a slice of 32 / P heads; each lane owns one
+// 16-byte slice of every row.  For each column:
+//  1. a lane loads its slices of the F + 1 key and value rows (and, up to 4
+//     frames, the F query and output-gradient rows) before their first
+//     use, and keeps them in registers as raw bits;
+//  2. per query, the partial logits and dp of its F + 1 keys, completed
+//     with xor shuffles over its head group; the softmax, p and dl in
+//     registers; dq's slice written as one 16-byte store; p and dl kept in
+//     a small per-warp table in shared memory (F (F + 1) floats each a
+//     head, the rows of a head group at an odd stride, so the groups read
+//     it without bank conflicts);
+//  3. per key, dK = sum over queries of dl qa and dV of p do, from the
+//     table and the query and output-gradient rows (past 4 frames
+//     reloaded here, from the cache, instead of held), written as 16-byte
+//     stores; the CLS key's rows are added to the run's float32 sums.
+// Only the warp itself reads its table (__syncwarp, no block barrier).  No
+// atomics: every output element has one writer, and two launches give the
+// same bits.
 //
-// Launch configuration (counterpart of the VMEM n-block probe,
-// _time_kernel_compiles / time_n_block): the CTA's shared memory is checked
-// against the device's opt-in limit, read once per device, and a shape
-// above it is refused (the wrapper raises).  The CTA size follows from the
-// same limits (threads_for_smem in common.cuh).
+// Shapes: those of the forward (F from 1 to 16, any N, hd a multiple of 8
+// at bf16 or 4 at float32, up to 32 lanes a head, 16-byte aligned tensors);
+// the launcher refuses any other (the wrapper raises).
 
 #include <math.h>
 
 #include "common.cuh"
+#include "time_attention_stream.cuh"
 
 namespace egovlp {
 namespace {
 
-inline size_t time_bwd_smem_bytes(int F, int D, int H) {
-  const size_t dp = static_cast<size_t>(D) + 1;
-  const size_t f = static_cast<size_t>(F);
-  return ((4 * f + 2) * dp + 2 * H * f * (f + 1)) * sizeof(float);
+using k2::kWarps;
+using k2::Slice;
+
+// patch columns a warp walks; the wrapper's CLS scratch has ceil(N / kRun)
+// rows a b (kernels/cuda_attention.py, TIME_BWD_RUN)
+constexpr int kRun = 4;
+
+// floats of one head's p (or dl) table: F (F + 1), made odd
+__host__ __device__ inline int table_stride(int F) { return (F * (F + 1)) | 1; }
+
+inline size_t bwd_smem_bytes(int F, int P) {
+  return static_cast<size_t>(kWarps) * 2 * (32 / P) * table_stride(F) * sizeof(float);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+template <typename T, int FC>
+__global__ void __launch_bounds__(kWarps * 32)
 time_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ cls_k,
                           const T* __restrict__ cls_v, const T* __restrict__ dout,
                           T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
                           float* __restrict__ dcls_k, float* __restrict__ dcls_v, int F,
-                          int N, int D, int H, float scale) {
-  extern __shared__ __align__(16) float tsm[];
-  const int dp = D + 1;
-  const int f1 = F + 1;
-  const int hd = D / H;
-  float* q_s = tsm;                                    // [F][dp], scaled
-  float* do_s = q_s + static_cast<size_t>(F) * dp;     // [F][dp]
-  float* k_s = do_s + static_cast<size_t>(F) * dp;     // [F + 1][dp], row 0 CLS
-  float* v_s = k_s + static_cast<size_t>(f1) * dp;     // [F + 1][dp], row 0 CLS
-  float* p_s = v_s + static_cast<size_t>(f1) * dp;     // [H][F][F + 1] logits, then p
-  float* dl_s = p_s + static_cast<size_t>(H) * F * f1;  // [H][F][F + 1] dp, then dl
+                          int N, int D, int H, int P, int slices, int runs, long long warps,
+                          float scale) {
+  extern __shared__ float tables[];
+  constexpr int kN = Slice<T>::kN;
+  constexpr bool kHold = FC <= 4;  // the query and do rows held from step 1
+  const long long warp = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  if (warp >= warps) return;
+  const int s = static_cast<int>(warp % slices);
+  const long long rest = warp / slices;  // b * runs + run
+  const int run = static_cast<int>(rest % runs), b = static_cast<int>(rest / runs);
+  const k2::Lane ln(s, P, H, D / H, kN);
+  const int hpw = 32 / P;
+  const int stride = table_stride(F);
+  float* p_tab = tables + (threadIdx.x / 32) * 2 * hpw * stride + ln.g * stride;
+  float* dl_tab = p_tab + hpw * stride;
+  const size_t frame = static_cast<size_t>(N) * D;
 
-  const int b = blockIdx.x / N, j = blockIdx.x % N;
+  float cls_dk[kN], cls_dv[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) cls_dk[i] = cls_dv[i] = 0.f;
+  const uint4 kc = k2::load_if(ln.active, cls_k + static_cast<size_t>(b) * D + ln.c);
+  const uint4 vc = k2::load_if(ln.active, cls_v + static_cast<size_t>(b) * D + ln.c);
 
-  for (int t = threadIdx.x; t < F * D; t += blockDim.x) {
-    const int g = t / D, c = t % D;
-    const size_t src = (static_cast<size_t>(b * F + g) * N + j) * D + c;
-    q_s[g * dp + c] = Cvt<T>::to_f(q[src]) * scale;
-    do_s[g * dp + c] = Cvt<T>::to_f(dout[src]);
-    k_s[(g + 1) * dp + c] = Cvt<T>::to_f(k[src]);
-    v_s[(g + 1) * dp + c] = Cvt<T>::to_f(v[src]);
-  }
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    k_s[c] = Cvt<T>::to_f(cls_k[static_cast<size_t>(b) * D + c]);
-    v_s[c] = Cvt<T>::to_f(cls_v[static_cast<size_t>(b) * D + c]);
-  }
-  __syncthreads();
+#pragma unroll 1
+  for (int t = 0; t < kRun; ++t) {
+    const int j = run * kRun + t;
+    if (j >= N) break;
+    const size_t row0 = (static_cast<size_t>(b) * F * N + j) * D + ln.c;
 
-  // logits and dp: t = (h * F + fi) * (F + 1) + key
-  for (int t = threadIdx.x; t < H * F * f1; t += blockDim.x) {
-    const int key = t % f1, row = t / f1;
-    const int fi = row % F, h = row / F;
-    const float* qr = q_s + fi * dp + h * hd;
-    const float* gr = do_s + fi * dp + h * hd;
-    const float* kr = k_s + key * dp + h * hd;
-    const float* vr = v_s + key * dp + h * hd;
-    float s = 0.f, g = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      s = fmaf(qr[d], kr[d], s);
-      g = fmaf(gr[d], vr[d], g);
+    // 1. the column's rows
+    uint4 kr[FC + 1], vr[FC + 1], qr[FC], gr[FC];
+    kr[0] = kc;
+    vr[0] = vc;
+#pragma unroll
+    for (int f = 0; f < FC; ++f) {
+      const bool in = ln.active && f < F;
+      kr[f + 1] = k2::load_if(in, k + row0 + f * frame);
+      vr[f + 1] = k2::load_if(in, v + row0 + f * frame);
+      if (kHold) {
+        qr[f] = k2::load_if(in, q + row0 + f * frame);
+        gr[f] = k2::load_if(in, dout + row0 + f * frame);
+      }
     }
-    p_s[t] = s;
-    dl_s[t] = g;
-  }
-  __syncthreads();
 
-  for (int r = threadIdx.x; r < H * F; r += blockDim.x) {
-    float* pr = p_s + r * f1;
-    float* dr = dl_s + r * f1;
-    float m = -INFINITY;
-    for (int key = 0; key < f1; ++key) m = fmaxf(m, pr[key]);
-    float sum = 0.f;
-    for (int key = 0; key < f1; ++key) {
-      const float e = expf(pr[key] - m);
-      pr[key] = e;
-      sum += e;
+    // 2. per query: p, dl, dq
+    auto query = [&](int fi, const uint4& qv, const uint4& gv) {
+      float qf[kN], gf[kN];
+      Slice<T>::to_f(qv, qf, fi);
+      Slice<T>::to_f(gv, gf, fi);
+#pragma unroll
+      for (int i = 0; i < kN; ++i) qf[i] *= scale;
+      float sums[2 * (FC + 1)];  // the logits, then dp; 0 past F
+      float* lg = sums;
+      float* dp = sums + FC + 1;
+#pragma unroll
+      for (int key = 0; key <= FC; ++key) {
+        float kf[kN], vf[kN];
+        Slice<T>::to_f(kr[key], kf, 2 * fi);
+        Slice<T>::to_f(vr[key], vf, 2 * fi);
+        lg[key] = k2::dot<kN>(qf, kf);
+        dp[key] = k2::dot<kN>(gf, vf);
+      }
+      k2::group_sums<2 * (FC + 1)>(sums, P);
+      float m = -INFINITY;
+#pragma unroll
+      for (int key = 0; key <= FC; ++key)
+        if (key <= F) m = fmaxf(m, lg[key]);
+      float sum = 0.f;
+#pragma unroll
+      for (int key = 0; key <= FC; ++key) {
+        if (key <= F) {
+          lg[key] = expf(lg[key] - m);
+          sum += lg[key];
+        }
+      }
+      float inner = 0.f;
+#pragma unroll
+      for (int key = 0; key <= FC; ++key) {
+        if (key <= F) {
+          lg[key] = lg[key] / sum;  // p
+          inner = fmaf(dp[key], lg[key], inner);
+        }
+      }
+      float acc[kN];
+#pragma unroll
+      for (int i = 0; i < kN; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int key = 0; key <= FC; ++key) {
+        if (key <= F) {
+          const float dl = lg[key] * (dp[key] - inner);
+          float kf[kN];
+          Slice<T>::to_f(kr[key], kf, 2 * fi + 1);
+#pragma unroll
+          for (int i = 0; i < kN; ++i) acc[i] = fmaf(dl, kf[i], acc[i]);
+          if (ln.r == 0) {
+            p_tab[fi * (F + 1) + key] = lg[key];
+            dl_tab[fi * (F + 1) + key] = dl;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kN; ++i) acc[i] *= scale;
+      if (ln.active) k2::store(dq + row0 + fi * frame, Slice<T>::from_f(acc));
+    };
+    if constexpr (kHold) {
+#pragma unroll
+      for (int fi = 0; fi < FC; ++fi)
+        if (fi < F) query(fi, qr[fi], gr[fi]);
+    } else {  // each query's rows loaded one ahead of their use
+      uint4 qn = k2::load_if(ln.active, q + row0);
+      uint4 gn = k2::load_if(ln.active, dout + row0);
+#pragma unroll 1
+      for (int fi = 0; fi < F; ++fi) {
+        const uint4 qv = qn, gv = gn;
+        const bool next = ln.active && fi + 1 < F;
+        qn = k2::load_if(next, q + row0 + (fi + 1) * frame);
+        gn = k2::load_if(next, dout + row0 + (fi + 1) * frame);
+        query(fi, qv, gv);
+      }
     }
-    float inner = 0.f;
-    for (int key = 0; key < f1; ++key) {
-      const float p = pr[key] / sum;
-      pr[key] = p;
-      inner = fmaf(dr[key], p, inner);
-    }
-    for (int key = 0; key < f1; ++key) dr[key] = pr[key] * (dr[key] - inner);
-  }
-  __syncthreads();
+    __syncwarp();
 
-  // dq rows, then the column's dK / dV rows for its F frame keys
-  for (int t = threadIdx.x; t < F * D; t += blockDim.x) {
-    const int g = t / D, c = t % D;
-    const int h = c / hd;
-    const float* dr = dl_s + (h * F + g) * f1;
-    float acc = 0.f;
-    for (int key = 0; key < f1; ++key) acc = fmaf(dr[key], k_s[key * dp + c], acc);
-    float ak = 0.f, av = 0.f;
-    for (int fi = 0; fi < F; ++fi) {
-      const int e = (h * F + fi) * f1 + g + 1;
-      ak = fmaf(dl_s[e], q_s[fi * dp + c], ak);
-      av = fmaf(p_s[e], do_s[fi * dp + c], av);
+    // 3. per key: dK and dV
+    if (!kHold) {
+#pragma unroll
+      for (int f = 0; f < FC; ++f) {
+        const bool in = ln.active && f < F;
+        qr[f] = k2::load_if(in, q + row0 + f * frame);
+        gr[f] = k2::load_if(in, dout + row0 + f * frame);
+      }
     }
-    const size_t dst = (static_cast<size_t>(b * F + g) * N + j) * D + c;
-    dq[dst] = Cvt<T>::from_f(acc * scale);
-    dk[dst] = Cvt<T>::from_f(ak);
-    dv[dst] = Cvt<T>::from_f(av);
-  }
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    const int h = c / hd;
-    float ak = 0.f, av = 0.f;
-    for (int fi = 0; fi < F; ++fi) {
-      const int e = (h * F + fi) * f1;
-      ak = fmaf(dl_s[e], q_s[fi * dp + c], ak);
-      av = fmaf(p_s[e], do_s[fi * dp + c], av);
+#pragma unroll 1
+    for (int key = 0; key <= F; ++key) {
+      float ak[kN], av[kN];
+#pragma unroll
+      for (int i = 0; i < kN; ++i) ak[i] = av[i] = 0.f;
+#pragma unroll
+      for (int fi = 0; fi < FC; ++fi) {
+        if (fi < F) {
+          const float dl = dl_tab[fi * (F + 1) + key];
+          const float p = p_tab[fi * (F + 1) + key];
+          float qf[kN], gf[kN];
+          Slice<T>::to_f(qr[fi], qf, key);
+          Slice<T>::to_f(gr[fi], gf, key);
+#pragma unroll
+          for (int i = 0; i < kN; ++i) {
+            ak[i] = fmaf(dl, qf[i] * scale, ak[i]);
+            av[i] = fmaf(p, gf[i], av[i]);
+          }
+        }
+      }
+      if (key == 0) {
+#pragma unroll
+        for (int i = 0; i < kN; ++i) {
+          cls_dk[i] += ak[i];
+          cls_dv[i] += av[i];
+        }
+      } else if (ln.active) {
+        k2::store(dk + row0 + (key - 1) * frame, Slice<T>::from_f(ak));
+        k2::store(dv + row0 + (key - 1) * frame, Slice<T>::from_f(av));
+      }
     }
-    const size_t dst = (static_cast<size_t>(b) * N + j) * D + c;
-    dcls_k[dst] = ak;
-    dcls_v[dst] = av;
+    __syncwarp();  // the next column rewrites the tables
   }
+
+  if (ln.active) {
+    const size_t dst = (static_cast<size_t>(b) * runs + run) * D + ln.c;
+#pragma unroll
+    for (int i = 0; i < kN; i += 4) {
+      *reinterpret_cast<float4*>(dcls_k + dst + i) =
+          make_float4(cls_dk[i], cls_dk[i + 1], cls_dk[i + 2], cls_dk[i + 3]);
+      *reinterpret_cast<float4*>(dcls_v + dst + i) =
+          make_float4(cls_dv[i], cls_dv[i + 1], cls_dv[i + 2], cls_dv[i + 3]);
+    }
+  }
+}
+
+template <typename T, int FC>
+int launch_fc(const void* q, const void* k, const void* v, const void* ck, const void* cv,
+              const void* dout, void* dq, void* dk, void* dv, void* dck, void* dcv, int B,
+              int F, int N, int D, int H, float scale, cudaStream_t stream) {
+  const int P = k2::lanes_per_head(D / H, Slice<T>::kN);
+  const int slices = (H + 32 / P - 1) / (32 / P);
+  const int runs = (N + kRun - 1) / kRun;
+  const long long warps = static_cast<long long>(B) * runs * slices;
+  if (warps == 0) return static_cast<int>(cudaSuccess);
+  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
+  time_attention_bwd_kernel<T, FC><<<blocks, kWarps * 32, bwd_smem_bytes(F, P), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(ck), static_cast<const T*>(cv), static_cast<const T*>(dout),
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(dck),
+      static_cast<float*>(dcv), F, N, D, H, P, slices, runs, warps, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_time_bwd(const void* q, const void* k, const void* v, const void* ck,
                     const void* cv, const void* dout, void* dq, void* dk, void* dv, void* dck,
-                    void* dcv, int B, int F, int N, int D, int H, float scale, int device,
+                    void* dcv, int B, int F, int N, int D, int H, float scale,
                     cudaStream_t stream) {
-  const size_t smem = time_bwd_smem_bytes(F, D, H);
-  int threads = 0;
-  cudaError_t err = threads_for_smem(smem, device, &threads);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(time_attention_bwd_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(B) * N);
-  time_attention_bwd_kernel<T><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(ck), static_cast<const T*>(cv), static_cast<const T*>(dout),
-      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<float*>(dck), static_cast<float*>(dcv), F, N, D, H, scale);
-  return static_cast<int>(cudaGetLastError());
+  const void* ptrs[] = {q, k, v, ck, cv, dout, dq, dk, dv, dck, dcv};
+  bool aligned = true;
+  for (const void* p : ptrs) aligned = aligned && k2::aligned16(p);
+  if (H <= 0 || D % H != 0 || !k2::takes(F, D / H, Slice<T>::kN) || !aligned)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (F <= 4)
+    return launch_fc<T, 4>(q, k, v, ck, cv, dout, dq, dk, dv, dck, dcv, B, F, N, D, H, scale,
+                           stream);
+  if (F <= 8)
+    return launch_fc<T, 8>(q, k, v, ck, cv, dout, dq, dk, dv, dck, dcv, B, F, N, D, H, scale,
+                           stream);
+  return launch_fc<T, 16>(q, k, v, ck, cv, dout, dq, dk, dv, dck, dcv, B, F, N, D, H, scale,
+                          stream);
+}
+
+template <typename T>
+cudaError_t bwd_attributes(int F, cudaFuncAttributes* attr) {
+  if (F <= 4) return cudaFuncGetAttributes(attr, time_attention_bwd_kernel<T, 4>);
+  if (F <= 8) return cudaFuncGetAttributes(attr, time_attention_bwd_kernel<T, 8>);
+  return cudaFuncGetAttributes(attr, time_attention_bwd_kernel<T, 16>);
 }
 
 }  // namespace
 }  // namespace egovlp
 
 // Launches on `stream` of device `device`; returns a cudaError_t code.
-// dcls_k, dcls_v: float32 [B, N, D], each patch column's share of the CLS
-// grads.
+// dcls_k, dcls_v: float32 [B, ceil(N / 4), D], each run of 4 patch columns'
+// share of the CLS grads.
 extern "C" int egovlp_time_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* cls_k, const void* cls_v,
                                          const void* dout, void* dq, void* dk, void* dv,
                                          void* dcls_k, void* dcls_v, int B, int F, int N,
                                          int D, int H, float scale, int dtype, int device,
                                          void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = egovlp::k2::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == egovlp::kBFloat16)
     return egovlp::launch_time_bwd<__nv_bfloat16>(q, k, v, cls_k, cls_v, dout, dq, dk, dv,
-                                                  dcls_k, dcls_v, B, F, N, D, H, scale,
-                                                  device, s);
+                                                  dcls_k, dcls_v, B, F, N, D, H, scale, s);
   if (dtype == egovlp::kFloat32)
     return egovlp::launch_time_bwd<float>(q, k, v, cls_k, cls_v, dout, dq, dk, dv, dcls_k,
-                                          dcls_v, B, F, N, D, H, scale, device, s);
+                                          dcls_v, B, F, N, D, H, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Registers a thread and local (spill) bytes a thread of the instantiation a
+// launch with F frames at `dtype` takes, and the shared memory a CTA of it
+// takes at hd 64; returns a cudaError_t code.
+extern "C" int egovlp_time_attention_bwd_attributes(int F, int dtype, int* regs,
+                                                    int* local_bytes, int* smem) {
+  if (F < 1 || F > egovlp::k2::kFrameCap) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err;
+  int kn;
+  if (dtype == egovlp::kBFloat16) {
+    err = egovlp::bwd_attributes<__nv_bfloat16>(F, &attr);
+    kn = egovlp::k2::Slice<__nv_bfloat16>::kN;
+  } else if (dtype == egovlp::kFloat32) {
+    err = egovlp::bwd_attributes<float>(F, &attr);
+    kn = egovlp::k2::Slice<float>::kN;
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *smem = static_cast<int>(egovlp::bwd_smem_bytes(F, egovlp::k2::lanes_per_head(64, kn)));
+  return static_cast<int>(cudaSuccess);
 }

@@ -12,126 +12,154 @@
 // float32 on load; logits, softmax and accumulation stay float32 and the
 // sum is divided by the row sum before the one cast to the output dtype.
 //
-// What bounds it on an H100: device memory.  The groups are tiny (F 4 to 16
-// frames, hd 64), so each element of q, k and v takes part in only F + 1
-// multiply-adds per product; the kernel has to read q, k, v and write out
-// once, with coalesced accesses.
+// What bounds it on an H100: device memory.  Each query meets F + 1 keys,
+// so the work is ~2.5 FLOP a byte, far below the ~295 at which the tensor
+// cores would be the limit: the kernel's only job is to read q, k, v and
+// write out once at the card's memory rate.
 //
-// Design: one CTA per (b, patch column j), covering all H heads.  Each of
-// the F frame rows of that column is a contiguous D-wide row in memory, so
-// the CTA stages q (pre-scaled), [cls_k; k] and [cls_v; v] as whole rows in
-// shared memory with coalesced loads (rows padded by one float so threads
-// on different rows hit different banks).  Threads then take (head, query,
-// key) logits, (head, query) softmax rows, and (query, channel) outputs in
-// turn, and the stores are contiguous D-wide rows again.  The grid is
-// exactly B x N, so the TPU kernel's n padding is not needed.  Shared
-// memory grows as (3F + 2) D floats: 167 KB at F 16, D 768.
+// Design: a 16-byte streaming body (time_attention_stream.cuh).  One warp
+// takes one patch column of one b and a slice of 32 / P heads (4 heads of
+// hd 64 at bf16); each lane owns one 16-byte slice of every row.  A lane
+// issues its loads of the column's F + 1 key and value rows (and, up to 8
+// frames, its F query rows) before the first use, and keeps them in
+// registers as raw bits: no shared memory and no block barrier.  Per
+// query it takes its partial dot products with the F + 1 keys, completes
+// them with xor shuffles over its head group, runs the softmax in
+// registers (every lane of the group holds the row), and writes its slice
+// of the output row as one 16-byte store.  Past 8 frames the query rows
+// are loaded one ahead of their use instead, which keeps the 16-frame
+// instantiation within the register file.
 //
-// Launch configuration (counterpart of the VMEM n-block probe,
-// _time_kernel_compiles / time_n_block): the CTA's shared memory is checked
-// against the device's opt-in limit, read once per device, and a shape
-// above it is refused (the wrapper raises).  The CTA size follows from the
-// same limits (threads_for_smem in common.cuh): as many CTAs as the SM's
-// shared memory holds, with enough threads to fill the SM between them.
+// Shapes: F from 1 to 16 (instantiations hold 4, 8 or 16 frames), any N, hd
+// a multiple of 8 (bf16) or 4 (float32) up to 32 lanes a head, 16-byte
+// aligned tensors.  The launcher refuses any other shape (the wrapper
+// raises); there is no other body.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "time_attention_stream.cuh"
 
 namespace egovlp {
 namespace {
 
-inline size_t time_smem_bytes(int F, int D, int H) {
-  const size_t dp = static_cast<size_t>(D) + 1;
-  const size_t f = static_cast<size_t>(F);
-  return ((3 * f + 2) * dp + H * f * (f + 1) + H * f) * sizeof(float);
-}
+using k2::kWarps;
+using k2::Slice;
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+template <typename T, int FC>
+__global__ void __launch_bounds__(kWarps * 32)
 time_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ cls_k,
-                          const T* __restrict__ cls_v, T* __restrict__ out, int F,
-                          int N, int D, int H, float scale) {
-  extern __shared__ __align__(16) float tsm[];
-  const int dp = D + 1;
-  const int f1 = F + 1;
-  const int hd = D / H;
-  float* q_s = tsm;                                 // [F][dp], scaled
-  float* k_s = q_s + static_cast<size_t>(F) * dp;   // [F + 1][dp], row 0 CLS
-  float* v_s = k_s + static_cast<size_t>(f1) * dp;  // [F + 1][dp], row 0 CLS
-  float* e_s = v_s + static_cast<size_t>(f1) * dp;  // [H][F][F + 1]
-  float* s_s = e_s + static_cast<size_t>(H) * F * f1;  // [H][F] row sums
+                          const T* __restrict__ cls_v, T* __restrict__ out, int F, int N,
+                          int D, int H, int P, int slices, long long warps, float scale) {
+  constexpr int kN = Slice<T>::kN;
+  constexpr bool kHoldQ = FC <= 8;  // all query rows in registers
+  const long long warp = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+  if (warp >= warps) return;
+  const int s = static_cast<int>(warp % slices);
+  const long long col = warp / slices;  // b * N + j
+  const int b = static_cast<int>(col / N), j = static_cast<int>(col % N);
+  const k2::Lane ln(s, P, H, D / H, kN);
+  const size_t frame = static_cast<size_t>(N) * D;  // stride of one frame row
+  const size_t row0 = (static_cast<size_t>(b) * F * N + j) * D + ln.c;
 
-  const int b = blockIdx.x / N, j = blockIdx.x % N;
-
-  for (int t = threadIdx.x; t < F * D; t += blockDim.x) {
-    const int g = t / D, c = t % D;
-    const size_t src = (static_cast<size_t>(b * F + g) * N + j) * D + c;
-    q_s[g * dp + c] = Cvt<T>::to_f(q[src]) * scale;
-    k_s[(g + 1) * dp + c] = Cvt<T>::to_f(k[src]);
-    v_s[(g + 1) * dp + c] = Cvt<T>::to_f(v[src]);
+  uint4 kr[FC + 1], vr[FC + 1], qr[kHoldQ ? FC : 1];
+  kr[0] = k2::load_if(ln.active, cls_k + static_cast<size_t>(b) * D + ln.c);
+  vr[0] = k2::load_if(ln.active, cls_v + static_cast<size_t>(b) * D + ln.c);
+#pragma unroll
+  for (int f = 0; f < FC; ++f) {
+    const bool in = ln.active && f < F;
+    kr[f + 1] = k2::load_if(in, k + row0 + f * frame);
+    vr[f + 1] = k2::load_if(in, v + row0 + f * frame);
+    if (kHoldQ) qr[f] = k2::load_if(in, q + row0 + f * frame);
   }
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    k_s[c] = Cvt<T>::to_f(cls_k[static_cast<size_t>(b) * D + c]);
-    v_s[c] = Cvt<T>::to_f(cls_v[static_cast<size_t>(b) * D + c]);
-  }
-  __syncthreads();
 
-  // logits: t = (h * F + fi) * (F + 1) + key
-  for (int t = threadIdx.x; t < H * F * f1; t += blockDim.x) {
-    const int key = t % f1, row = t / f1;
-    const int fi = row % F, h = row / F;
-    const float* qr = q_s + fi * dp + h * hd;
-    const float* kr = k_s + key * dp + h * hd;
-    float s = 0.f;
-    for (int d = 0; d < hd; ++d) s = fmaf(qr[d], kr[d], s);
-    e_s[t] = s;
-  }
-  __syncthreads();
-
-  for (int r = threadIdx.x; r < H * F; r += blockDim.x) {
-    float* er = e_s + r * f1;
-    float m = -INFINITY;
-    for (int key = 0; key < f1; ++key) m = fmaxf(m, er[key]);
-    float sum = 0.f;
-    for (int key = 0; key < f1; ++key) {
-      const float e = expf(er[key] - m);
-      er[key] = e;
-      sum += e;
+  // one query row: logits, softmax and the output slice
+  auto query = [&](int fi, const uint4& qv) {
+    float qf[kN];
+    Slice<T>::to_f(qv, qf, fi);
+#pragma unroll
+    for (int i = 0; i < kN; ++i) qf[i] *= scale;
+    float e[FC + 1];
+#pragma unroll
+    for (int key = 0; key <= FC; ++key) {
+      float kf[kN];
+      Slice<T>::to_f(kr[key], kf, fi);
+      e[key] = k2::dot<kN>(qf, kf);  // 0 past F
     }
-    s_s[r] = sum;
-  }
-  __syncthreads();
+    k2::group_sums<FC + 1>(e, P);
+    float m = -INFINITY;
+#pragma unroll
+    for (int key = 0; key <= FC; ++key)
+      if (key <= F) m = fmaxf(m, e[key]);
+    float sum = 0.f;
+    float acc[kN];
+#pragma unroll
+    for (int i = 0; i < kN; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int key = 0; key <= FC; ++key) {
+      if (key <= F) {
+        const float p = expf(e[key] - m);
+        sum += p;
+        float vf[kN];
+        Slice<T>::to_f(vr[key], vf, fi);
+#pragma unroll
+        for (int i = 0; i < kN; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kN; ++i) acc[i] /= sum;
+    if (ln.active) k2::store(out + row0 + fi * frame, Slice<T>::from_f(acc));
+  };
 
-  for (int t = threadIdx.x; t < F * D; t += blockDim.x) {
-    const int fi = t / D, c = t % D;
-    const int r = (c / hd) * F + fi;
-    const float* er = e_s + r * f1;
-    float acc = 0.f;
-    for (int key = 0; key < f1; ++key) acc = fmaf(er[key], v_s[key * dp + c], acc);
-    out[(static_cast<size_t>(b * F + fi) * N + j) * D + c] = Cvt<T>::from_f(acc / s_s[r]);
+  if constexpr (kHoldQ) {
+#pragma unroll
+    for (int fi = 0; fi < FC; ++fi)
+      if (fi < F) query(fi, qr[fi]);
+  } else {  // each query row loaded one ahead of its use
+    qr[0] = k2::load_if(ln.active, q + row0);
+#pragma unroll 1
+    for (int fi = 0; fi < F; ++fi) {
+      const uint4 qv = qr[0];
+      qr[0] = k2::load_if(ln.active && fi + 1 < F, q + row0 + (fi + 1) * frame);
+      query(fi, qv);
+    }
   }
+}
+
+template <typename T, int FC>
+int launch_fc(const void* q, const void* k, const void* v, const void* ck, const void* cv,
+              void* out, int B, int F, int N, int D, int H, float scale, cudaStream_t stream) {
+  const int P = k2::lanes_per_head(D / H, Slice<T>::kN);
+  const int slices = (H + 32 / P - 1) / (32 / P);
+  const long long warps = static_cast<long long>(B) * N * slices;
+  if (warps == 0) return static_cast<int>(cudaSuccess);
+  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
+  time_attention_fwd_kernel<T, FC><<<blocks, kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(ck), static_cast<const T*>(cv), static_cast<T*>(out), F, N, D, H,
+      P, slices, warps, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_time(const void* q, const void* k, const void* v, const void* ck,
                 const void* cv, void* out, int B, int F, int N, int D, int H, float scale,
-                int device, cudaStream_t stream) {
-  const size_t smem = time_smem_bytes(F, D, H);
-  int threads = 0;
-  cudaError_t err = threads_for_smem(smem, device, &threads);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(time_attention_fwd_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(B) * N);
-  time_attention_fwd_kernel<T><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(ck), static_cast<const T*>(cv), static_cast<T*>(out), F, N, D,
-      H, scale);
-  return static_cast<int>(cudaGetLastError());
+                cudaStream_t stream) {
+  if (H <= 0 || D % H != 0 || !k2::takes(F, D / H, Slice<T>::kN) ||
+      !(k2::aligned16(q) && k2::aligned16(k) && k2::aligned16(v) && k2::aligned16(ck) &&
+        k2::aligned16(cv) && k2::aligned16(out)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (F <= 4) return launch_fc<T, 4>(q, k, v, ck, cv, out, B, F, N, D, H, scale, stream);
+  if (F <= 8) return launch_fc<T, 8>(q, k, v, ck, cv, out, B, F, N, D, H, scale, stream);
+  return launch_fc<T, 16>(q, k, v, ck, cv, out, B, F, N, D, H, scale, stream);
+}
+
+template <typename T>
+cudaError_t fwd_attributes(int F, cudaFuncAttributes* attr) {
+  if (F <= 4) return cudaFuncGetAttributes(attr, time_attention_fwd_kernel<T, 4>);
+  if (F <= 8) return cudaFuncGetAttributes(attr, time_attention_fwd_kernel<T, 8>);
+  return cudaFuncGetAttributes(attr, time_attention_fwd_kernel<T, 16>);
 }
 
 }  // namespace
@@ -142,24 +170,36 @@ extern "C" int egovlp_time_attention_fwd(const void* q, const void* k, const voi
                                          const void* cls_k, const void* cls_v, void* out,
                                          int B, int F, int N, int D, int H, float scale,
                                          int dtype, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = egovlp::k2::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == egovlp::kBFloat16)
     return egovlp::launch_time<__nv_bfloat16>(q, k, v, cls_k, cls_v, out, B, F, N, D, H,
-                                              scale, device, s);
+                                              scale, s);
   if (dtype == egovlp::kFloat32)
-    return egovlp::launch_time<float>(q, k, v, cls_k, cls_v, out, B, F, N, D, H, scale,
-                                      device, s);
+    return egovlp::launch_time<float>(q, k, v, cls_k, cls_v, out, B, F, N, D, H, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The CTA size a launch at (F, D, H) on `device` takes, written to
-// `threads`; returns a cudaError_t code (the launch's refusal, if any).
-extern "C" int egovlp_time_attention_fwd_threads(int F, int D, int H, int device,
-                                                 int* threads) {
-  return static_cast<int>(
-      egovlp::threads_for_smem(egovlp::time_smem_bytes(F, D, H), device, threads));
+// Registers a thread and local (spill) bytes a thread of the instantiation a
+// launch with F frames at `dtype` takes (`smem`: 0, it uses none); returns a
+// cudaError_t code.
+extern "C" int egovlp_time_attention_fwd_attributes(int F, int dtype, int* regs,
+                                                    int* local_bytes, int* smem) {
+  if (F < 1 || F > egovlp::k2::kFrameCap) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err;
+  if (dtype == egovlp::kBFloat16)
+    err = egovlp::fwd_attributes<__nv_bfloat16>(F, &attr);
+  else if (dtype == egovlp::kFloat32)
+    err = egovlp::fwd_attributes<float>(F, &attr);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *smem = static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(cudaSuccess);
 }
 
 // Message of a cudaError_t code, for the wrappers' exceptions.

@@ -28,8 +28,13 @@ body each way, ``csrc/attention_fwd_mma.cuh`` and
 ``csrc/attention_bwd_mma.cuh``), which take at most 256 keys (L + 1) and
 hd a multiple of 16 up to 128 (the backward: within the device's shared
 memory, so L <= 224 at hd 112 and L <= 207 at hd 128): any other bf16
-shape raises.  Their float32 launches, and K2 and K5, run scalar CUDA-core
-bodies.
+shape raises.  Their float32 launches, and K5, run scalar CUDA-core
+bodies.  K2, forward and backward, at both dtypes, is one 16-byte
+streaming body (``csrc/time_attention_stream.cuh``: a lane owns a 16-byte
+slice of every row, a warp a patch column and a slice of heads), which
+takes F from 1 to 16 frames, any N, and hd a multiple of 8 (bf16) or 4
+(float32) up to 32 slices, with 16-byte aligned tensors; any other shape
+raises.  There is no other K2 body.
 """
 
 from __future__ import annotations
@@ -119,11 +124,14 @@ def _bwd(name, plain, part_shape, x, **kw):
     _check(*x[:5], kw.get("heads", 1), x[5])
     if q.device.type == "cpu":
         return plain(*x, **kw)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    parts = [torch.empty(part_shape, device=q.device, dtype=torch.float32)
-             for _ in range(2)]
-    _launch(name, x, (dq, dk, dv, *parts), (*q.shape, *kw.values()))
-    dck, dcv = (t.sum(dim=1, keepdim=True).to(q.dtype) for t in parts)
+    # one allocation for the three grads and one for both scratches, one
+    # sum and one cast for both CLS grads: fewer host calls a launch
+    dq, dk, dv = torch.empty((3, *q.shape), device=q.device,
+                             dtype=q.dtype).unbind(0)
+    parts = torch.empty((2, *part_shape), device=q.device, dtype=torch.float32)
+    _launch(name, x, (dq, dk, dv, parts[0], parts[1]),
+            (*q.shape, *kw.values()))
+    dck, dcv = parts.sum(dim=2, keepdim=True).to(q.dtype).unbind(0)
     return dq, dk, dv, dck, dcv
 
 
@@ -276,12 +284,20 @@ def time_attention_bwd_plain(q, k, v, cls_k, cls_v, do, *, heads: int,
             dkc[:, :1].sum(dim=2).to(dt), dvc[:, :1].sum(dim=2).to(dt))
 
 
+# patch columns one warp of K2-bwd walks, summing their CLS grads; its
+# scratch has one row a run (``kRun`` in ``csrc/time_attention_bwd.cu``)
+TIME_BWD_RUN = 4
+
+
 def time_attention_bwd(q, k, v, cls_k, cls_v, do, *, heads: int,
                        scale: float):
-    """K2-bwd: ``(dq, dk, dv, dcls_k [B, 1, D], dcls_v [B, 1, D])``."""
+    """K2-bwd: ``(dq, dk, dv, dcls_k [B, 1, D], dcls_v [B, 1, D])``; the
+    kernel writes each run of ``TIME_BWD_RUN`` patch columns' share of the
+    CLS grads."""
     B, _, N, D = q.shape
+    runs = -(-N // TIME_BWD_RUN)
     return _bwd("time_attention_bwd", time_attention_bwd_plain,
-                (B, N, D), (q, k, v, cls_k, cls_v, do), heads=heads,
+                (B, runs, D), (q, k, v, cls_k, cls_v, do), heads=heads,
                 scale=scale)
 
 

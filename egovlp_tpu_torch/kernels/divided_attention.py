@@ -18,10 +18,12 @@ Three entry points, as in the JAX package:
   already scaled, through K4 (space) and K5 (time).  No tower calls it.
 
 ``impl='pallas'`` goes through the autograd Functions (forward and
-backward kernels on a CUDA tensor, their plain twins on a CPU tensor);
-``impl='xla'`` is plain torch, which autograd differentiates directly: the
-oracle path.  The CLS row is plain torch in both and gets its gradient
-from autograd, as the JAX package gets it from ``jax.grad`` of plain jnp.
+backward kernels on a CUDA tensor, their plain twins on a CPU tensor,
+which round where the kernels do); ``impl='xla'`` (and ``'xla2'`` on
+time) is plain torch at the rounding points of the JAX package's XLA
+paths, which autograd differentiates directly.  The CLS row is plain
+torch in both and gets its gradient from autograd, as the JAX package
+gets it from ``jax.grad`` of plain jnp.
 """
 
 from __future__ import annotations
@@ -33,34 +35,19 @@ from egovlp_tpu_torch.kernels.cuda_attention import (
     SpaceAttention,
     TimeAttention,
     TimeAttentionHS,
-    space_attention_fwd_plain,
-    time_attention_fwd_plain,
 )
 
-
-def _plain(fn):
-    def grouped(q, k, v, cls_k, cls_v, heads, scale):
-        return fn(q, k, v, cls_k, cls_v, heads=heads, scale=scale)
-    return grouped
-
-
-# (axis, impl) -> grouped op ``(q, k, v, cls_k, cls_v, heads, scale)``;
-# 'xla2' is the JAX package's canonical-relayout time path
-# (``_time_xla_parts_v2``), the same math as 'xla'
-_GROUPED = {
-    ("space", "pallas"): SpaceAttention.apply,
-    ("space", "xla"): _plain(space_attention_fwd_plain),
-    ("time", "pallas"): TimeAttention.apply,
-    ("time", "xla"): _plain(time_attention_fwd_plain),
-    ("time", "xla2"): _plain(time_attention_fwd_plain),
-}
+_PARTS_IMPLS = {("space", "pallas"), ("space", "xla"), ("time", "pallas"),
+                ("time", "xla"), ("time", "xla2")}
 
 
 def _cls_row_parts(qc, kc, vc, kp, vp, heads: int, scale: float):
     """CLS-query full-attention row: ``[B, 1, D]`` over [CLS; all patches].
 
-    Logits and softmax in float32, probabilities rounded to the activation
-    dtype before the value sum (as the JAX op does)."""
+    At the JAX op's rounding points (:167-189): ``q * scale`` in the
+    activation dtype, float32 logits and softmax, probabilities rounded to
+    the dtype; the patch value sum is rounded to the dtype, then the CLS
+    term ``p_cls * v_cls`` is added, each op in the dtype."""
     B, D = kp.shape[0], kp.shape[-1]
     hd = D // heads
     dt = kp.dtype
@@ -69,10 +56,38 @@ def _cls_row_parts(qc, kc, vc, kp, vp, heads: int, scale: float):
     v4 = vp.reshape(B, -1, heads, hd).float()
     lg_c = (q3c * kc.reshape(B, heads, hd).float()).sum(-1, keepdim=True)
     lg_p = torch.einsum("bhd,bshd->bhs", q3c, k4)
-    pr = torch.softmax(torch.cat([lg_c, lg_p], dim=-1), dim=-1).to(dt).float()
-    oc = torch.einsum("bhs,bshd->bhd", pr[:, :, 1:], v4)
-    oc = oc + pr[:, :, :1] * vc.reshape(B, heads, hd).float()
-    return oc.reshape(B, 1, D).to(dt)
+    pr = torch.softmax(torch.cat([lg_c, lg_p], dim=-1), dim=-1).to(dt)
+    oc = torch.einsum("bhs,bshd->bhd", pr[:, :, 1:].float(), v4).to(dt)
+    oc = oc + pr[:, :, :1] * vc.reshape(B, heads, hd)
+    return oc.reshape(B, 1, D)
+
+
+def _time_xla_parts(qc, kc, vc, qp, kp, vp, heads: int, scale: float,
+                    relayout: bool = False):
+    """The time axis in plain torch at the rounding points of the JAX XLA
+    paths ``_time_xla_parts`` (:193) and, with ``relayout``,
+    ``_time_xla_parts_v2`` (:255), whose one explicit ``[B, n, H, f, hd]``
+    copy per tensor it makes too: float32 logits times the scale, the CLS
+    logit spliced first, normalised probabilities rounded to the
+    activation dtype, the patch value sum rounded to it, then the CLS term
+    ``p_cls * v_cls`` added, each op in the dtype."""
+    B, f, n, D = qp.shape
+    hd = D // heads
+    dt = qp.dtype
+
+    def columns(t):  # [B, f, n, D] -> [B, n, H, f, hd]
+        t = t.reshape(B, f, n, heads, hd).permute(0, 2, 3, 1, 4)
+        return t.contiguous() if relayout else t
+
+    q6, k6, v6 = columns(qp), columns(kp), columns(vp)
+    q6f = q6.float()
+    lg = (q6f @ k6.float().transpose(-1, -2)) * scale
+    lg_cls = (q6f @ kc.reshape(B, 1, heads, hd, 1).float()) * scale
+    pr = torch.softmax(torch.cat([lg_cls, lg], dim=-1), dim=-1).to(dt)
+    out = (pr[..., 1:].float() @ v6.float()).to(dt)
+    out = out + pr[..., :1] * vc.reshape(B, 1, heads, 1, hd)
+    out_p = out.permute(0, 3, 1, 2, 4).reshape(B, f, n, D)
+    return _cls_row_parts(qc, kc, vc, kp, vp, heads, scale), out_p
 
 
 def divided_attention_parts(qc, kc, vc, qp, kp, vp, *, heads: int,
@@ -83,19 +98,36 @@ def divided_attention_parts(qc, kc, vc, qp, kp, vp, *, heads: int,
       qc, kc, vc: ``[B, 1, D]`` CLS projections.
       qp, kp, vp: ``[B, f, n, D]`` patch projections (the grid layout).
       axis: ``'space'`` or ``'time'``.
-      impl: ``'pallas'`` (kernel wrappers) or ``'xla'`` (plain torch);
-        ``'xla2'`` (time only) is ``'xla'``.
+      impl: ``'pallas'``: the CLS row in plain torch, the patch queries
+        through K1 (space) or K2 (time).  ``'xla'``: the JAX XLA paths'
+        plain torch at their rounding points (JAX :333-353): on space,
+        ``divided_attention_bsd(impl='xla')`` on ``[cls; patches]``, CLS
+        row included; on time, ``_time_xla_parts``.  ``'xla2'`` (time
+        only): ``_time_xla_parts`` with the explicit relayout.
 
     Returns ``(cls_out [B, 1, D], out_p [B, f, n, D])``.
     """
-    if (axis, impl) not in _GROUPED:
+    if (axis, impl) not in _PARTS_IMPLS:
         raise ValueError(f"axis must be 'space'/'time' and impl "
                          f"'pallas'/'xla' (or 'xla2' on time); got {axis!r}, "
                          f"{impl!r}")
-    scale = float(qp.shape[-1] // heads) ** -0.5
-    cls_out = _cls_row_parts(qc, kc, vc, kp, vp, heads, scale)
-    out_p = _GROUPED[axis, impl](qp, kp, vp, kc, vc, heads, scale)
-    return cls_out, out_p
+    B, f, n, D = qp.shape
+    scale = float(D // heads) ** -0.5
+    if impl == "pallas":
+        op = SpaceAttention if axis == "space" else TimeAttention
+        return (_cls_row_parts(qc, kc, vc, kp, vp, heads, scale),
+                op.apply(qp, kp, vp, kc, vc, heads, scale))
+    if axis == "time":
+        return _time_xla_parts(qc, kc, vc, qp, kp, vp, heads, scale,
+                               relayout=impl == "xla2")
+
+    def cat(c, t):
+        return torch.cat([c, t.reshape(B, f * n, D)], dim=1)
+
+    out = divided_attention_bsd(cat(qc, qp), cat(kc, kp), cat(vc, vp),
+                                heads=heads, frames=f, patches=n,
+                                axis="space", impl="xla")
+    return out[:, :1], out[:, 1:].reshape(B, f, n, D)
 
 
 def divided_attention(q, k, v, *, frames: int, patches: int, axis: str,

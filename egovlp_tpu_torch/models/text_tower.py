@@ -14,10 +14,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from egovlp_tpu_torch.core.precision import Linear
+from egovlp_tpu_torch.core.precision import Linear, gelu
 from egovlp_tpu_torch.kernels.fused_ln import FusedLayerNorm
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -85,7 +84,7 @@ class FFN(nn.Module):
         self.lin2 = Linear(cfg.hidden_dim, cfg.dim, device=device)
 
     def forward(self, x):
-        return self.lin2(F.gelu(self.lin1(x)))
+        return self.lin2(gelu(self.lin1(x)))
 
 
 class TransformerBlock(nn.Module):

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from egovlp_tpu_torch.core.precision import Linear
+from egovlp_tpu_torch.core.precision import Linear, gelu
 from egovlp_tpu_torch.kernels.divided_attention import divided_attention_parts
 from egovlp_tpu_torch.kernels.fused_ln import FusedLayerNorm
 
@@ -42,10 +42,11 @@ def resolve_attention_impls(cfg_impl: str):
     """Map ``attention_impl`` to ``(space_impl, time_impl)``.
 
     ``'auto'``/``'pallas'``: the hand-written kernels on a CUDA device (their
-    plain twins on a CPU tensor); ``'xla'``: plain torch on both axes;
-    ``'mixed'``: space kernel, time plain; ``'mixed2'``: space kernel, time
-    ``'xla2'`` (the JAX package's relayout variant of the plain time path,
-    the same math, so plain time here too)."""
+    plain twins on a CPU tensor); ``'xla'``: plain torch on both axes, at
+    the rounding points of the JAX package's XLA paths; ``'mixed'``: space
+    kernel, time plain; ``'mixed2'``: space kernel, time ``'xla2'`` (the
+    JAX package's relayout variant of the plain time path, the same
+    rounding)."""
     table = {"auto": ("pallas", "pallas"), "pallas": ("pallas", "pallas"),
              "xla": ("xla", "xla"), "mixed": ("pallas", "xla"),
              "mixed2": ("pallas", "xla2")}
@@ -90,7 +91,7 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden_dim, dim, device=device)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return self.fc2(gelu(self.fc1(x)))
 
 
 class VarAttention(nn.Module):
@@ -178,7 +179,8 @@ class PatchEmbed(nn.Module):
         x = x.reshape(N, H // p, p, W // p, p, C).permute(0, 1, 3, 5, 2, 4)
         x = x.reshape(N, (H // p) * (W // p), C * p * p)
         w = self.proj.weight.reshape(self.proj.weight.shape[0], -1)
-        return F.linear(x, w.to(x.dtype), self.proj.bias.to(x.dtype))
+        # the product rounded to x's dtype, then the bias added in it
+        return F.linear(x, w.to(x.dtype)) + self.proj.bias.to(x.dtype)
 
 
 class SpaceTimeTransformer(nn.Module):

@@ -9,7 +9,10 @@ without the suite's jax-based ``conftest.py``:
 
 At bf16 K1 and K4, forward and backward, run on the tensor cores
 (``csrc/attention_fwd_mma.cuh``, ``csrc/attention_bwd_mma.cuh``); their
-float32 launches keep the scalar bodies.
+float32 launches keep the scalar bodies.  K2, forward and backward, is a
+16-byte streaming body at both dtypes (``csrc/time_attention_stream.cuh``)
+that computes in float32 and casts once, as its twin does: its bf16
+outputs too stay within relative L2 1e-3 of the twin.
 
 Tolerances: float32 1e-4 (same math, another summation order); bf16 2e-2
 for the forward kernels and 5e-2 for the backward kernels on unit-normal
@@ -251,7 +254,8 @@ def test_cuda_wrapper_raises_on_shapes_the_kernel_cannot_take(cuda_device,
                                                               name, dtype, f,
                                                               n, D):
     # float32: more shared memory than the device lets one block opt in to
-    # (and, K4-bwd, more than its 256 keys); bf16 tensor-core forward and
+    # (and, K4-bwd, more than its 256 keys; K2: more than its 16 frames);
+    # bf16 tensor-core forward and
     # backward: more than 256 keys (L + 1 = 257), or hd 24, not a multiple
     # of 16; the backward at hd 128: L 208, whose staged tiles pass the
     # opt-in shared memory
@@ -327,3 +331,83 @@ def test_cuda_divided_attention_routes_agree(cuda_device, axis):
              split(k12[3])]
     for i, (g, w) in enumerate(zip(got, merge)):
         assert (g - w).abs().max().item() <= 1e-4, i
+
+
+K2 = ("time_attention_fwd", "time_attention_bwd")
+
+
+def _assert_close_to_twin(got, want, dtype, tol):
+    """Each output within ``tol`` max abs of the twin's and, at bf16,
+    within relative L2 1e-3 (float32: 1e-5)."""
+    rel_tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == dtype and g.shape == w.shape, i
+        g, w = g.double(), w.double()
+        assert bool(torch.isfinite(g).all()), i
+        err = (g - w).abs().max().item()
+        rel = ((g - w).norm() / w.norm()).item()
+        assert err <= tol and rel <= rel_tol, (i, err, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("f", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("n", [1, 7, 61, 196])
+def test_cuda_time_streaming_matches_plain(cuda_device, name, dtype, hd, f, n):
+    # every instantiation (4, 8 and 16 frames held) at F below and at its
+    # capacity, ragged N (a run of 4 columns cut short), 3 heads: the
+    # warps' head slices end in a group with no head
+    B, H = 2, 3
+    x = _kernel_inputs(name, cuda_device, dtype, B, f, n, H * hd, H,
+                       seed=f * 1000 + n + hd)
+    ca.reset_launch_counts()
+    got = _call(getattr(ca, name), name, x, H)
+    torch.cuda.synchronize()
+    assert ca.launches[name] == 1
+    want = _call(getattr(ca, f"{name}_plain"), name, x, H)
+    if name.endswith("fwd"):
+        got, want = (got,), (want,)
+    tol = 1e-4 if dtype == torch.float32 else (
+        2e-2 if name.endswith("fwd") else 5e-2)
+    _assert_close_to_twin(got, want, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_time_bwd_is_deterministic(cuda_device, dtype):
+    # each output element has one writer, and each warp sums its run of
+    # columns' CLS grads in a fixed order: two launches give the same bits
+    x = _kernel_inputs("time_attention_bwd", cuda_device, dtype, 2, 4, 196,
+                       768, 12, seed=6)
+    first = _call(ca.time_attention_bwd, "time_attention_bwd", x, 12)
+    second = _call(ca.time_attention_bwd, "time_attention_bwd", x, 12)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K2)
+@pytest.mark.parametrize("dtype,f,hd", [
+    (F32, 17, 64), (BF16, 17, 64),   # past the 16 frames it holds
+    (BF16, 12, 4), (F32, 2, 6),      # hd not whole 16-byte slices
+    (BF16, 4, 264), (F32, 4, 132)])  # more than 32 slices a head
+def test_cuda_time_streaming_refuses_shapes(cuda_device, name, dtype, f, hd):
+    H = 2
+    x = _kernel_inputs(name, cuda_device, dtype, 1, f, 3, H * hd, H)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _call(getattr(ca, name), name, x, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K2)
+def test_cuda_time_streaming_refuses_unaligned_tensors(cuda_device, name):
+    # contiguous, but 2 bytes past a 16-byte boundary
+    x = _kernel_inputs(name, cuda_device, BF16, 1, 4, 5, 128, 2)
+    flat = torch.empty(x[0].numel() + 8, device=cuda_device, dtype=BF16)
+    x[0] = flat[1:1 + x[0].numel()].view(x[0].shape).copy_(x[0])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _call(getattr(ca, name), name, x, 2)
