@@ -87,7 +87,34 @@ Phases, each of which passes or raises (any failure exits non-zero):
    ``divided_attention_bsd(impl='pallas')``, the K1/K2 route, on the
    un-split ``[B, S, D]`` form of them (max abs error within 4% of the
    largest value, relative L2 within 1e-2); prints each route's median
-   forward + backward time.
+   forward + backward time;
+7. training CLI: a synthetic EgoClip tree in a temporary directory (4
+   video uids, each with two 600-s chunk files ``0.mp4`` and ``1.mp4`` of
+   150 frames at 320 x 256 written with OpenCV, which the GPU machine has;
+   ``egoclip.csv`` of 96 narrations, a third of whose clips cross the
+   600-s chunk boundary, so that their frames come from both files;
+   ``egomcq.json`` of 16 items of both types; a vocabulary).  Then, in
+   this process, through the entry points a user calls:
+   ``egovlp_tpu_torch.cli.train.main`` on ``configs/pt/egoclip.json`` at
+   full width in bf16 (random time attention, 2 epochs of 48 samples: 3
+   steps of 16 clips + 16 scene negatives, the Loader's 16 decode
+   threads, strict loading, EgoMCQ validation after each epoch under
+   ``max Inter-video``), then ``--resume`` of its epoch-2 checkpoint with
+   ``-o trainer.epochs=3``, then ``cli.eval --checkpoint`` on that
+   checkpoint, then ``configs/eval/egomcq.json`` (the eval-only preset)
+   through ``cli.train`` on the same weights.  Checks: the first run
+   launches K1-fwd / K2-fwd / K1-bwd / K2-bwd 12 / 12 / 11 / 12 times a
+   training step plus K1-fwd and K2-fwd 12 times a validation tower pass
+   (2 a validation: 16 items at 8 a batch), and K4 / K5 never; every loss
+   is finite; both accuracies are present and in [0, 100];
+   ``checkpoint-epoch{1,2}.pth`` exist; the resumed run trains epoch 3
+   only and its optimizer count reaches 9; ``cli.eval`` and the eval-only
+   preset give that checkpoint's in-run accuracies, and the preset writes
+   no checkpoint.  Prints the loop's median step-end to step-end time (CUDA
+   events recorded after each step, so no step waits on the host) over
+   the steps after the first and its clips/s through the real Loader, the
+   median time the loop waited on the Loader for a batch, and EgoMCQ
+   items/s of each validation with the time it waited on its Loader.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object with one
 entry per kernel, and ``{"ok": true, "device": {...}}``.
@@ -147,6 +174,10 @@ DEVICE = "cuda"
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "a", "person", "cuts", "an",
          "onion", "opens", "the", "door", "picks", "up", "knife", "##s"]
 TEXTS = ["a person cuts an onion", "opens the door", "picks up the knife"]
+# phase 7: the synthetic EgoClip tree's vocabulary, verbs and nouns
+CLI_VOCAB = VOCAB + ["#", "c", "moves", "holds", "box", "cup", "table"]
+CLI_VERBS = ["opens", "cuts", "picks", "moves", "holds"]
+CLI_NOUNS = ["door", "onion", "knife", "box", "cup", "table"]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -900,6 +931,260 @@ def phase_head_split(ca, smi: str) -> dict:
     return total
 
 
+def decode_stack() -> str:
+    """What this machine offers the readers: OpenCV, pandas (which the port
+    does not need), and the libav libraries the native decoder links."""
+    import ctypes.util
+    import importlib.metadata
+    import importlib.util
+
+    import cv2
+
+    pandas = (importlib.metadata.version("pandas")
+              if importlib.util.find_spec("pandas") else "absent")
+    libav = {lib: ctypes.util.find_library(lib) or "absent"
+             for lib in ("avcodec", "avformat", "swscale")}
+    return f"cv2 {cv2.__version__}, pandas {pandas}, libav {libav}"
+
+
+def write_egoclip_tree(root: Path) -> None:
+    """The synthetic EgoClip tree of phase 7 (see the module notes)."""
+    import cv2
+
+    rng = np.random.default_rng(7)
+    uids = [f"uid{u}" for u in range(4)]
+    yy, xx = np.mgrid[0:256, 0:320]
+    for u, uid in enumerate(uids):
+        (root / uid).mkdir(parents=True)
+        for chunk in (0, 1):
+            path = str(root / uid / f"{chunk}.mp4")
+            vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                                 (320, 256))
+            check(vw.isOpened(), f"cv2 cannot write {path}")
+            for i in range(150):
+                t = 150 * chunk + i
+                vw.write(np.stack([(xx // 2 + yy // 2 + 60 * u + t) % 256,
+                                   (yy + 2 * t + 30 * u) % 256,
+                                   (xx + 3 * t) % 256], -1).astype(np.uint8))
+            vw.release()
+
+    def clip(j):
+        """(start, end): in chunk 0, across the 600-s bound, in chunk 1."""
+        start = (0.2 + 0.1 * j, 599.0 + 0.02 * j, 600.3 + 0.1 * j)[j % 3]
+        return start, start + (1.0, 1.5, 1.0)[j % 3]
+
+    def caption():
+        v, n = rng.choice(len(CLI_VERBS)), rng.choice(len(CLI_NOUNS))
+        return f"#C C {CLI_VERBS[v]} the {CLI_NOUNS[n]}", v, n
+
+    lines = ["video_uid\tvideo_dur\tnarration_source\tnarration_ind\t"
+             "narration_time\tclip_start\tclip_end\tclip_text\ttag_verb\t"
+             "tag_noun"]
+    for uid in uids:
+        for j in range(24):
+            start, end = clip(j)
+            text, v, n = caption()
+            lines.append(f"{uid}\t1200.0\tnarration_pass_1\t{j}\t"
+                         f"{(start + end) / 2:.3f}\t{start:.3f}\t{end:.3f}\t"
+                         f"{text}\t[{v}]\t[{n}, {10 + n}]")
+    (root / "egoclip.csv").write_text("\n".join(lines) + "\n")
+    mcq = {}
+    for q in range(16):
+        # type 1 (intra-video): options from one uid; type 2: from all
+        choices = {}
+        for o in range(5):
+            j = int(rng.integers(0, 24))
+            start, end = clip(j)
+            uid = uids[q % 4] if q % 2 == 0 else uids[(q + o) % 4]
+            choices[str(o)] = {"video_uid": uid, "clip_start": start,
+                               "clip_end": end, "clip_text": caption()[0]}
+        mcq[str(q)] = {"query": {"clip_text": caption()[0]},
+                       "choices": choices, "answer": q % 5,
+                       "types": 1 + q % 2}
+    (root / "egomcq.json").write_text(json.dumps(mcq))
+    (root / "vocab.txt").write_text("\n".join(CLI_VOCAB))
+
+
+def phase_train_cli(ca, smi: str) -> dict:
+    """Phase 7; returns the kernel launches of the first ``cli.train`` run."""
+    import torch
+
+    from egovlp_tpu_torch.cli import eval as cli_eval
+    from egovlp_tpu_torch.cli import train as cli_train
+    from egovlp_tpu_torch.data import native
+    from egovlp_tpu_torch.data.pipeline import Loader
+    from egovlp_tpu_torch.train import recipes
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    write_egoclip_tree(root / "data")
+    decoder = "the native decoder" if native.available() else "OpenCV"
+    print(f"train_cli: EgoClip tree written in {time.perf_counter() - t0:.1f}"
+          f" s; frames decoded by {decoder}; {decode_stack()}", flush=True)
+    data = root / "data"
+    overrides = [
+        f"data_loader.args.data_dir={json.dumps(str(data))}",
+        f"data_loader.args.meta_dir={json.dumps(str(data))}",
+        "data_loader.args.num_workers=16",
+        # a decode failure raises instead of feeding black frames
+        'data_loader.args.video_params.loading="strict"',
+        f"arch.args.text_params.vocab={json.dumps(str(data / 'vocab.txt'))}",
+        'arch.args.video_params.time_init="random"',
+        f"trainer.save_dir={json.dumps(str(root / 'results'))}",
+    ]
+    ov = [a for o in overrides for a in ("-o", o)]
+    pt = str(ROOT / "configs/pt/egoclip.json")
+    models = root / "results" / "models" / "EgoClip_4f"
+
+    # instrumentation, this script's only: a CUDA event after each step,
+    # the time each batch took to come out of the Loader, and each
+    # validation's result and time
+    ends, losses, vals = [], [], []
+    waits = {"train": [], "val": []}
+    make_step, evaluate, epoch_fn = (recipes.make_egoclip_train_step,
+                                     recipes.evaluate_egomcq, Loader.epoch)
+
+    def timed_make_step(**kw):
+        step = make_step(**kw)
+
+        def timed(model, optimizer, batch, generator):
+            loss = step(model, optimizer, batch, generator)
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+            losses.append(loss)
+            return loss
+        return timed
+
+    def timed_evaluate(model, loader, input_res=224):
+        t0, w0 = time.perf_counter(), len(waits["val"])
+        m = evaluate(model, loader, input_res)
+        vals.append((m, len(loader.dataset), time.perf_counter() - t0,
+                     sum(waits["val"][w0:])))
+        return m
+
+    def timed_epoch(self, epoch=0):
+        it = epoch_fn(self, epoch)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            waits["train" if self.dataset.cfg.split == "train" else "val"
+                  ].append(time.perf_counter() - t0)
+            yield batch
+
+    recipes.make_egoclip_train_step = timed_make_step
+    recipes.evaluate_egomcq = timed_evaluate
+    Loader.epoch = timed_epoch
+    try:
+        # ---- the main path, counted -----------------------------------
+        ca.reset_launch_counts()
+        model, opt = cli_train.main(["--config", pt, *ov,
+                                     "-o", "trainer.epochs=2",
+                                     "-o", "trainer.max_samples_per_epoch=48"])
+        torch.cuda.synchronize()
+        counts = dict(ca.launches)
+        # ----------------------------------------------------------------
+        print(f"train_cli launches: {counts}", flush=True)
+        check(model.video_model.dtype == torch.bfloat16
+              and model.cfg.video.depth == 12 and model.cfg.video.embed_dim
+              == DIM and model.cfg.text.n_layers == 6, "not the full model")
+        n_steps, passes = len(ends), 2 * len(vals)
+        check(n_steps == 6 and len(vals) == 2 and opt.param_groups[0][
+            "count"] == 6, f"{n_steps} steps, {len(vals)} validations")
+        per_step = {name: 12 for name in KERNELS}
+        per_step["space_attention_bwd"] = 11
+        for name, c in counts.items():
+            want = (per_step[name] * n_steps if name in KERNELS else 0) + (
+                12 * passes if name in FWD else 0)
+            check(c == want, f"{name}: {c} launches in cli.train, expected "
+                             f"{want}")
+        values = [float(v) for v in losses]
+        print(f"train_cli losses: {[round(v, 5) for v in values]}",
+              flush=True)
+        check(all(np.isfinite(values)), "a cli.train loss is not finite")
+        for m, *_ in vals:
+            check(set(m) == {"Intra-video", "Inter-video"}
+                  and all(0.0 <= v <= 100.0 for v in m.values()),
+                  f"EgoMCQ metrics {m}")
+        (run,) = models.iterdir()
+        names = sorted(p.name for p in run.iterdir())
+        print(f"train_cli run dir: {names}; validation {[v[0] for v in vals]}",
+              flush=True)
+        check({"checkpoint-epoch1.pth", "checkpoint-epoch2.pth"} <= set(names),
+              "epoch checkpoints missing")
+        ckpt2 = str(run / "checkpoint-epoch2.pth")
+        in_run = vals[1][0]
+        # device timeline: step i's end to step i+1's end, steps 2-6, the
+        # epoch boundary's interval (validation, checkpoint) dropped by the
+        # median
+        torch.cuda.synchronize()
+        loop_ms = statistics.median(a.elapsed_time(b)
+                                    for a, b in zip(ends[1:], ends[2:]))
+        wait_ms = statistics.median(waits["train"]) * 1e3
+        print(f"train_cli loop (32 clips a step: 16 + 16 scene negatives, "
+              f"decoded by the Loader): median step end to step end over "
+              f"steps 2-6 {loop_ms:.2f} ms ({32 / loop_ms * 1e3:.1f} "
+              f"clips/s); median wait on the Loader {wait_ms:.2f} ms a "
+              f"batch (first batches of the epochs included) [{smi}]",
+              flush=True)
+        for i, (m, n, sec, wait) in enumerate(vals):
+            print(f"train_cli EgoMCQ validation {i + 1}: {n} items in "
+                  f"{sec:.3f} s ({n / sec:.1f} items/s), {wait:.3f} s of it "
+                  f"waiting on the Loader (5 options x 4 frames an item) "
+                  f"[{smi}]", flush=True)
+        del model, opt
+        torch.cuda.empty_cache()
+
+        # ---- resume at epoch 3 ------------------------------------------
+        ends.clear(), vals.clear()
+        ca.reset_launch_counts()
+        model, opt = cli_train.main(["--config", pt, *ov, "--resume", ckpt2,
+                                     "-o", "trainer.epochs=3",
+                                     "-o", "trainer.max_samples_per_epoch=48"])
+        resumed = dict(ca.launches)
+        (run3,) = [d for d in models.iterdir() if d != run]
+        names3 = sorted(p.name for p in run3.iterdir())
+        print(f"resume: launches {resumed}, run dir {names3}, optimizer "
+              f"count {opt.param_groups[0]['count']}", flush=True)
+        check(len(ends) == 3 and opt.param_groups[0]["count"] == 9,
+              "the resumed run did not take 3 steps to count 9")
+        check("checkpoint-epoch3.pth" in names3 and not any(
+            n in names3 for n in ("checkpoint-epoch1.pth",
+                                  "checkpoint-epoch2.pth")),
+              "the resumed run did not start at epoch 3")
+        check(resumed["space_attention_bwd"] == 33, "resume launches")
+        del model, opt
+        torch.cuda.empty_cache()
+
+        # ---- cli.eval and the eval-only preset on the epoch-2 weights -----
+        eval_ov = [a for o in overrides[:5] for a in ("-o", o)]
+        got = cli_eval.main(["--config", pt, "--checkpoint", ckpt2,
+                             *eval_ov])
+        print(f"cli.eval on epoch 2: {got}, in-run {in_run}", flush=True)
+        check(got == in_run, "cli.eval disagrees with the in-run validation")
+        vals.clear()
+        cli_train.main(["--config", str(ROOT / "configs/eval/egomcq.json"),
+                        *ov, "-o",
+                        f"arch.args.load_checkpoint={json.dumps(ckpt2)}"])
+        preset = root / "results" / "models" / "EgoClip_4f_eval"
+        (run_eval,) = preset.iterdir()
+        print(f"eval-only preset: {vals[0][0]}, run dir "
+              f"{sorted(p.name for p in run_eval.iterdir())}", flush=True)
+        check(len(vals) == 1 and vals[0][0] == in_run,
+              "the eval-only preset disagrees with the in-run validation")
+        check([p.name for p in run_eval.iterdir()] == ["config.json"],
+              "the eval-only preset wrote a checkpoint")
+    finally:
+        recipes.make_egoclip_train_step = make_step
+        recipes.evaluate_egomcq = evaluate
+        Loader.epoch = epoch_fn
+        tmp.cleanup()
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -958,18 +1243,22 @@ def main() -> None:
     train_counts = phase_train(ca, smi)
     torch.cuda.empty_cache()
     hs_counts = phase_head_split(ca, smi)
+    torch.cuda.empty_cache()
+    cli_counts = phase_train_cli(ca, smi)
 
     kernels = [{"name": name, "route": "cuda",
                 "source": f"egovlp_tpu_torch/kernels/csrc/{name}.cu",
                 "replaces": replaces, "launches": train_counts[name],
                 "launches_by_path": {"serving": serve_counts[name],
-                                     "training": train_counts[name]},
+                                     "training": train_counts[name],
+                                     "train_cli": cli_counts[name]},
                 **rows[name]}
                for name, replaces in KERNELS.items()]
     kernels += [{"name": name, "route": "cuda",
                  "source": f"egovlp_tpu_torch/kernels/csrc/{name}.cu",
                  "replaces": replaces, "launches": hs_counts[name],
-                 "launches_by_path": {"head_split_op": hs_counts[name]},
+                 "launches_by_path": {"head_split_op": hs_counts[name],
+                                      "train_cli": cli_counts[name]},
                  **rows[name]}
                 for name, replaces in HS_KERNELS.items()]
     print(smi)

@@ -6,8 +6,11 @@ package so each counterpart is easy to find.  This package imports torch
 and numpy, never jax, flax or any module of the JAX package.
 
 Covered so far: the embedding service (``serving.py``, ``cli/serve.py``)
-and EgoClip training (``train/``: the EgoNCE step, AdamW with step-LR,
-the epoch loop and torch-pickle checkpoints) on the full dual encoder.
+and EgoClip pretraining with EgoMCQ validation on the full dual encoder:
+``cli/train.py`` -> ``train/recipes.run_task`` -> the EgoClip / EgoMCQ
+datasets (``data/datasets``) and the threaded ``data/pipeline.Loader`` ->
+the EgoNCE step, AdamW with step-LR, the ``Trainer`` and torch-pickle
+checkpoints, and ``cli/eval.py`` (EgoMCQ).  One process drives one GPU.
 The divided space- and time-attention of every video block runs forward
 and backward through hand-written CUDA kernels (``kernels/csrc``) on a
 CUDA device and through their plain PyTorch twins on the CPU.

@@ -1,11 +1,12 @@
-"""Construct the model and tokenizer from a task config.
+"""Construct the model, tokenizer, datasets and loaders from a task config.
 
-Counterpart of ``egovlp_tpu/train/build.py`` for the model and the
-tokenizer: ``build_model_config`` (the same ``arch.args`` schema, with
-``drop_path_rate`` and ``remat``), ``build_model``, ``init_params`` with an
-explicit ``torch.Generator``, ``load_pretrained`` (torch ``.pth`` files
-only) and ``build_tokenizer``.  The datasets and loaders wait for the
-EgoClip slice.
+Counterpart of ``egovlp_tpu/train/build.py``: ``build_model_config`` (the
+same ``arch.args`` schema, with ``drop_path_rate`` and ``remat``),
+``build_model``, ``init_params`` with an explicit ``torch.Generator``,
+``load_pretrained`` (torch ``.pth`` files only), ``build_tokenizer``,
+``build_dataset`` and ``build_loader``.  A loader's batch size is per
+process, and each process drives one GPU; the shard is the process's
+``torch.distributed`` rank when that is initialized, else 0 of 1.
 """
 
 from __future__ import annotations
@@ -17,7 +18,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from egovlp_tpu_torch.core.dist_eval import process_shard
 from egovlp_tpu_torch.core.precision import Linear, compute_dtype
+from egovlp_tpu_torch.data.datasets import DatasetConfig, dataset_factory
+from egovlp_tpu_torch.data.pipeline import Loader
 from egovlp_tpu_torch.data.text import WordPieceTokenizer
 from egovlp_tpu_torch.io.config import Config
 from egovlp_tpu_torch.kernels.fused_ln import FusedLayerNorm
@@ -171,3 +175,46 @@ def build_tokenizer(config: Config, max_length: int = 30
     if not os.path.exists(vocab):
         return None
     return WordPieceTokenizer(vocab, max_length=max_length)
+
+
+def build_dataset(dl_args: Dict[str, Any], split: str):
+    name = dl_args["dataset_name"]
+    vp = dl_args.get("video_params", {})
+    ds_cfg = DatasetConfig(
+        data_dir=dl_args.get("data_dir", ""),
+        meta_dir=dl_args.get("meta_dir"),
+        split=split,
+        num_frames=int(vp.get("num_frames", dl_args.get("num_frames", 4))),
+        pre_size=int(vp.get("pre_size", 256)),
+        input_res=int(vp.get("input_res", 224)),
+        loading=vp.get("loading", "strict"),
+        neg_param=dl_args.get("neg_param"),
+        subsample=dl_args.get("subsample", 1),
+        max_samples=dl_args.get("max_samples"),
+        sliding_window_stride=int(dl_args.get("sliding_window_stride", -1)),
+        extra=dl_args.get("extra", {}),
+    )
+    return dataset_factory(name)(ds_cfg)
+
+
+def build_loader(dl_args: Dict[str, Any], split: str,
+                 tokenizer: Optional[WordPieceTokenizer],
+                 batch_size: Optional[int] = None,
+                 max_samples_per_epoch: Optional[int] = None) -> Loader:
+    ds = build_dataset(dl_args, split)
+    shard, num_shards = process_shard()
+    return Loader(
+        ds,
+        batch_size=batch_size or int(dl_args.get("batch_size", 16)),
+        tokenizer=tokenizer,
+        num_workers=int(dl_args.get("num_workers", 8)),
+        num_procs=int(dl_args.get("num_procs", 0)),
+        seed=int(dl_args.get("seed", 0)),
+        shard=shard,
+        num_shards=num_shards,
+        drop_last=(split == "train"),
+        shuffle=(split == "train") if dl_args.get("shuffle") is None
+        else bool(dl_args.get("shuffle")),
+        max_samples_per_epoch=max_samples_per_epoch,
+        item_timeout=dl_args.get("item_timeout_sec"),
+    )

@@ -20,13 +20,7 @@ import torch
 from egovlp_tpu_torch import build
 from egovlp_tpu_torch.io.config import load_config
 from egovlp_tpu_torch.serving import Embedder, serve
-
-
-def _dl_args(config) -> dict:
-    dl = config["data_loader"]
-    if isinstance(dl, list):
-        dl = dl[0]
-    return dict(dl.get("args", dl))
+from egovlp_tpu_torch.train.recipes import _dl_args
 
 
 def main(argv=None):

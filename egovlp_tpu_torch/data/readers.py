@@ -1,11 +1,12 @@
-"""Host-side frame reader for the embedding service.
+"""Host-side frame readers.
 
-The port's own copy of what ``read_frames`` needs from
-``egovlp_tpu/data/readers.py`` (:33-195): the OpenCV backend, the native
-decoder (``data/native.py``) when its library is built, a small
-per-thread cache of open handles, and last-frame padding.  The reader
-returns a FIXED ``[num_frames, pre, pre, 3]`` uint8 array (short-side
-resized and center cropped) and the sampled indices.
+The port's own copy of ``egovlp_tpu/data/readers.py`` (:25-247) for the
+embedding service and the EgoClip datasets: the OpenCV backend, the
+native decoder (``data/native.py``) when its library is built, a small
+per-thread cache of open handles (``acquire_video`` / ``release_video``),
+last-frame padding, the whole-video reader and the EgoClip chunked reader.
+Each reader returns a FIXED ``[num_frames, pre, pre, 3]`` uint8 array
+(short-side resized and center cropped) and the sampled indices.
 """
 
 from __future__ import annotations
@@ -18,7 +19,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from egovlp_tpu_torch.data import native
-from egovlp_tpu_torch.data.samplers import sample_frames
+from egovlp_tpu_torch.data.samplers import sample_frames, sample_frames_start_end
+
+EGOCLIP_FPS = 30  # EgoClip chunks are 30 fps
+CHUNK_SEC = 600   # 600-second chunk files
 
 
 def _resize_center_crop_cv2(frame_bgr: np.ndarray, pre: int) -> np.ndarray:
@@ -98,31 +102,55 @@ def _cache_dict() -> OrderedDict:
     return d
 
 
+def acquire_video(path: str, backend: str = "auto"):
+    """An open handle for ``path``, from this thread's cache when there is
+    one, freshly opened otherwise.  Pair with ``release_video``."""
+    if _CACHE_CAP <= 0:
+        return open_video(path, backend)
+    v = _cache_dict().pop((path, backend), None)
+    return v if v is not None else open_video(path, backend)
+
+
+def release_video(path: str, backend: str, video, ok: bool = True) -> None:
+    """Return a handle to this thread's cache (least recently used evicted
+    past the capacity); ``ok=False`` (a read raised: the decoder's state is
+    suspect) closes it instead."""
+    if _CACHE_CAP <= 0 or not ok:
+        video.close()
+        return
+    d = _cache_dict()
+    old = d.pop((path, backend), None)
+    if old is not None and old is not video:
+        old.close()  # a second handle on the same file: keep the newest
+    d[(path, backend)] = video
+    while len(d) > _CACHE_CAP:
+        _, old = d.popitem(last=False)
+        old.close()
+
+
 class cached_video:
-    """Context manager over an open handle from this thread's cache;
-    a handle whose read raised is closed, not cached."""
+    """Context manager over ``acquire_video`` / ``release_video``."""
 
     def __init__(self, path: str, backend: str = "auto"):
-        self.key = (path, backend)
-        v = _cache_dict().pop(self.key, None) if _CACHE_CAP > 0 else None
-        self.video = v if v is not None else open_video(path, backend)
+        self.path, self.backend = path, backend
+        self.video = acquire_video(path, backend)
 
     def __enter__(self):
         return self.video
 
     def __exit__(self, exc_type, *exc):
-        if _CACHE_CAP <= 0 or exc_type is not None:
-            self.video.close()
-            return False
-        d = _cache_dict()
-        old = d.pop(self.key, None)
-        if old is not None and old is not self.video:
-            old.close()  # a second handle on the same file: keep the newest
-        d[self.key] = self.video
-        while len(d) > _CACHE_CAP:
-            _, old = d.popitem(last=False)
-            old.close()
+        release_video(self.path, self.backend, self.video,
+                      ok=exc_type is None)
         return False
+
+
+def get_video_len(path: str, backend: str = "auto") -> int:
+    """The frame count of ``path``; 0 when it cannot be opened."""
+    try:
+        with cached_video(path, backend) as v:
+            return v.frame_count
+    except Exception:
+        return 0
 
 
 def _pad_to(frames: np.ndarray, valid: int, num_frames: int) -> np.ndarray:
@@ -148,3 +176,53 @@ def read_frames(video_path: str, num_frames: int, sample: str = "rand",
                              fix_start=fix_start, rng=rng)
         frames, ok = v.read_frames(idxs, pre_size)
     return _pad_to(frames, ok, num_frames), idxs
+
+
+def read_frames_egoclip(video_path_1: str, video_path_2: str,
+                        num_frames: int, sample: str,
+                        start_sec: float, end_sec: float, bound_sec: float,
+                        pre_size: int = 256,
+                        rng: Optional[np.random.Generator] = None,
+                        backend: str = "auto"):
+    """EgoClip chunked reader: a clip may span two 600-s chunk files.  The
+    global frame index is ``sec * 30``, the local one that index modulo
+    the chunk length, clamped to the file's frame count; frames past
+    ``bound_sec`` come from the second chunk."""
+    start_f = max(0, int(start_sec * EGOCLIP_FPS))
+    end_f = max(0, int(end_sec * EGOCLIP_FPS))
+    bound_f = int(bound_sec * EGOCLIP_FPS)
+    idxs = sample_frames_start_end(num_frames, start_f, end_f, sample=sample,
+                                   rng=rng)
+
+    same = video_path_1 == video_path_2
+    ok = False
+    v1 = acquire_video(video_path_1, backend)
+    v2 = v1 if same else acquire_video(video_path_2, backend)
+    try:
+        chunk_len = CHUNK_SEC * EGOCLIP_FPS
+        locals_1, locals_2, order = [], [], []
+        for i, gidx in enumerate(idxs):
+            lidx = gidx % chunk_len
+            if gidx > bound_f:
+                locals_2.append(min(lidx, max(v2.frame_count - 1, 0)))
+                order.append((i, 2, len(locals_2) - 1))
+            else:
+                locals_1.append(min(lidx, max(v1.frame_count - 1, 0)))
+                order.append((i, 1, len(locals_1) - 1))
+        empty = (np.zeros((0, pre_size, pre_size, 3), np.uint8), 0)
+        f1, _ = v1.read_frames(locals_1, pre_size) if locals_1 else empty
+        f2, _ = v2.read_frames(locals_2, pre_size) if locals_2 else empty
+        if not locals_2:
+            out = f1  # the clip lies in one chunk: already in frame order
+        else:
+            out = np.zeros((len(idxs), pre_size, pre_size, 3), np.uint8)
+            for i, which, j in order:
+                out[i] = f1[j] if which == 1 else f2[j]
+        ok = True
+    finally:
+        # back to this thread's cache (the item's scene negative mostly
+        # reads the same chunk); a read that raised closes them
+        release_video(video_path_1, backend, v1, ok=ok)
+        if not same:
+            release_video(video_path_2, backend, v2, ok=ok)
+    return _pad_to(out, len(idxs), num_frames), idxs

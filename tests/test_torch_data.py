@@ -84,12 +84,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         egovlp_tpu_torch.__path__, "egovlp_tpu_torch."))
     assert "egovlp_tpu_torch.train.trainer" in modules
+    # the EgoClip data subpackage and the entry points are walked too
+    assert {"egovlp_tpu_torch.data.datasets",
+            "egovlp_tpu_torch.data.datasets.egoclip",
+            "egovlp_tpu_torch.data.pipeline", "egovlp_tpu_torch.cli.train",
+            "egovlp_tpu_torch.cli.eval"} <= set(modules)
+    # nor pandas, nor cv2: the EgoClip csv is read with the standard
+    # library, and cv2 is imported only where a video is decoded with it
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax')"
-        " or m.startswith(('jax.', 'egovlp_tpu.')) or m == 'egovlp_tpu')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax',"
+        " 'pandas', 'cv2') or m.startswith(('jax.', 'egovlp_tpu.', 'pandas.',"
+        " 'cv2.')) or m == 'egovlp_tpu')\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
