@@ -11,20 +11,19 @@ Phases, each of which passes or raises (any failure exits non-zero):
    per source, sm_90a) and prints the build time; prints the registers a
    thread, local (spill) bytes a thread and shared memory of the bf16
    tensor-core kernels (K1-fwd, K4-fwd, K1-bwd, K4-bwd) at L 196 and 255,
-   hd 64, and of the K2 streaming instantiations (forward and backward,
-   bf16 and float32) at f 4 and 16, and fails if an L 196 or a bf16 f 4
-   instantiation (the main path's) spills;
+   hd 64, and of the K2 and K5 streaming instantiations (forward and
+   backward, bf16 and float32) at f 4 and 16, and fails if an L 196 or a
+   bf16 f 4 instantiation (the main path's) spills;
 3. forward kernels: K1-fwd and K2-fwd against their plain PyTorch twins
    on unit-normal inputs, float32 (max abs error <= 1e-4) and bf16
    (<= 2e-2), and every output within a relative L2 error
    ||kernel - plain|| / ||plain|| of 1e-5 (float32) or 1e-3 (bf16: the
    tensor-core kernels K1 and K4 round bf16 where their twins do, and K2,
    like its twin, computes in float32 and casts once, so a kernel
-   rounding at another point fails; 1e-2 for the scalar bf16 bodies of
-   K5), at B 4 x (f, n) in {(4, 196), (1, 196), (16, 196), (8, 61), (4,
-   61), (2, 255)} (n 255: the most keys the bf16 tensor-core kernels take;
-   forward, and the backward at bf16) and at the training shape B 32, f 4,
-   n 196; a bf16 launch of a tensor-core kernel at L 256 (257 keys) must
+   rounding at another point fails), at B 4 x (f, n) in {(4, 196), (1,
+   196), (16, 196), (8, 61), (4, 61), (2, 255)} (n 255: the most keys the
+   bf16 tensor-core kernels take; forward, and the backward at bf16) and
+   at the training shape B 32, f 4, n 196; a bf16 launch of a tensor-core kernel at L 256 (257 keys) must
    raise; then kernel, plain and library
    (``F.scaled_dot_product_attention`` on inputs already laid out) median
    times (CUDA events, 20 runs, the launch path included), the kernel's
@@ -41,17 +40,24 @@ Phases, each of which passes or raises (any failure exits non-zero):
    twins on unit-normal inputs with q already scaled by hd ** -0.5, float32
    and bf16: K4 ``[BH, G, L, 64]`` at L in {1, 4, 16, 61, 196} and G from 1
    to 196 (and L 255, forward and bf16 backward), K5 ``[BH, f, n, 64]``
-   at f in {1, 4, 16}, and the full-width shapes of phase 6 (BH 384); max
+   at f in {1, 4, 8, 16} on its streaming body and f 20 on its scalar
+   body (n 196, 197 and 61: ragged blocks of 4 columns), and the
+   full-width shapes of phase 6 (BH 384); max
    abs error at float32 <= 1e-4 (forward) and 2e-4 (backward), at bf16
    <= 2e-2 (K4-fwd, as K1-fwd) and 4e-2 (K5-fwd: 2 to 5 keys, so outputs
    up to ~5, where one ulp is 3.1e-2), and 2.5e-1 (backward: their dq is
    not multiplied by the scale, so gradients reach ~30, where one ulp is
-   1.25e-1); the same relative L2 limits; timed at ``[192, 4, 196, 64]``
-   bf16 (B 16 x 12 heads), the library call being SDPA with one head a
-   group and scale 1;
+   1.25e-1); the same relative L2 limits (1e-3 at bf16 for K5, both
+   bodies); timed at ``[192, 4, 196, 64]`` bf16 (B 16 x 12 heads), the
+   library call being SDPA with one head a group and scale 1; two K5-bwd
+   launches on the timed inputs must give the same bits; each timed K5
+   call prints the body it ran on (the streaming body there), and K5's
+   scalar body is held and timed at the timed shape with q one element off
+   a 16-byte boundary (the same work) and at f 17;
    the times of the kernels redesigned since their first scalar bodies
-   (the four tensor-core kernels, K2-fwd and K2-bwd) are printed beside
-   their scalar bodies' times from ``PERF.md``, SDPA and the bound;
+   (the four tensor-core kernels and the K2 and K5 streaming kernels) are
+   printed beside their scalar bodies' times from ``PERF.md``, SDPA and
+   the bound;
 4. serving slice: the full-width dual encoder of ``configs/eval/egomcq.json``
    in bf16 with seeded random weights (time attention initialised
    non-zero, so the time kernel sees real inputs) behind ``serve()``:
@@ -82,8 +88,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
    pretraining shape in bf16, B 32, H 12, n 196, hd 64, on the space axis
    at f 4 and the time axis at f 4 and 16 (S 785 and 3137).  Each call
    must launch K4 (space) or K5 (time) forward and backward once each and
-   no other kernel; its output and q/k/v gradients are held against
-   ``impl='xla'`` on the same tensors and against
+   no other kernel, K5 on its streaming body; its output and q/k/v
+   gradients are held against ``impl='xla'`` on the same tensors and against
    ``divided_attention_bsd(impl='pallas')``, the K1/K2 route, on the
    un-split ``[B, S, D]`` form of them (max abs error within 4% of the
    largest value, relative L2 within 1e-2); prints each route's median
@@ -122,6 +128,7 @@ entry per kernel, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import json
@@ -158,9 +165,16 @@ TENSOR_CORE = {"space_attention_fwd": 1.1665,
                "grouped_attention_fwd": 1.1826,
                "space_attention_bwd": 2.8054,
                "grouped_attention_bwd": 2.8622}
-# K2's 16-byte streaming bodies (both dtypes), and their scalar bodies'
-# times, likewise
-STREAMING = {"time_attention_fwd": 0.1427, "time_attention_bwd": 0.2867}
+# the 16-byte streaming bodies (both dtypes) of K2 and K5, and their
+# scalar bodies' times, likewise
+STREAMING = {"time_attention_fwd": 0.1427, "time_attention_bwd": 0.2867,
+             "time_attention_hs_fwd": 0.1536, "time_attention_hs_bwd": 0.3708}
+# each kernel's body header beside its .cu (kernels/csrc)
+BODIES = {"space_attention_fwd": "attention_fwd_mma.cuh",
+          "grouped_attention_fwd": "attention_fwd_mma.cuh",
+          "space_attention_bwd": "attention_bwd_mma.cuh",
+          "grouped_attention_bwd": "attention_bwd_mma.cuh",
+          **dict.fromkeys(STREAMING, "time_attention_stream.cuh")}
 REDESIGNED = {**TENSOR_CORE, **STREAMING}
 FWD = ("space_attention_fwd", "time_attention_fwd")
 BWD = ("space_attention_bwd", "time_attention_bwd")
@@ -227,6 +241,38 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
             return total / 1e3 / iters
     raise RuntimeError("three profiler sessions saw no kernel of the "
                        "repository")
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    import torch
+
+    flat = torch.empty(t.numel() + 8, device=t.device, dtype=t.dtype)
+    out = flat[1:1 + t.numel()].view(t.shape).copy_(t)
+    check(out.data_ptr() % 16 != 0, "misaligned copy is aligned")
+    return out
+
+
+@contextlib.contextmanager
+def recorded_bodies(ca):
+    """The K5 bodies ``ca.time_hs_body`` picks inside the block, in order
+    (names: ``'streaming'`` or ``'scalar'``)."""
+    route, bodies = ca.time_hs_body, []
+
+    def record(*tensors):
+        body = route(*tensors)
+        bodies.append(body_name(ca, body))
+        return body
+
+    ca.time_hs_body = record
+    try:
+        yield bodies
+    finally:
+        ca.time_hs_body = route
+
+
+def body_name(ca, body: int) -> str:
+    return {ca.TIME_HS_STREAM: "streaming", ca.TIME_HS_SCALAR: "scalar"}[body]
 
 
 def grid_inputs(B, f, n, dtype, seed, grad=False):
@@ -404,13 +450,16 @@ def phase_kernels(ca, smi: str) -> dict:
                 check_kernel(name, x, f"B{B} f{f} n{n}")
                 del x
     # K4 [BH, G, L, hd]: L in {1, 4, 16, 61, 196}, G from 1 to 196 (L 4,
-    # G 196 is the time-shaped group); K5 [BH, f, n, hd] at f 1, 4, 16;
-    # then the full-width shapes of phase 6 (B 32 x 12 heads)
+    # G 196 is the time-shaped group); K5 [BH, f, n, hd] at f 1, 4, 8, 16
+    # (streaming body; n 197 and 61 leave a ragged block of 4 columns) and
+    # f 20 (scalar body); then the full-width shapes of phase 6 (B 32 x 12
+    # heads)
     hs_shapes = {"grouped": ((48, 4, 196), (48, 1, 196), (48, 196, 4),
                              (24, 7, 61), (24, 5, 16), (24, 3, 1),
                              (384, 4, 196)),
                  "time": ((48, 1, 196), (48, 4, 196), (48, 16, 196),
-                          (24, 4, 61), (384, 4, 196), (384, 16, 196))}
+                          (24, 4, 61), (24, 8, 197), (24, 20, 61),
+                          (384, 4, 196), (384, 16, 196))}
     hs_edge_shapes = {"grouped": ((24, 3, 255),), "time": ()}
     for name in HS_KERNELS:
         kind = name.split("_")[0]
@@ -420,7 +469,9 @@ def phase_kernels(ca, smi: str) -> dict:
             for BH, a, b in hs_shapes[kind] + edge:
                 x = hs_inputs(BH, a, b, dtype, seed=a * 1000 + b + BH,
                               grad=name.endswith("bwd"))
-                check_kernel(name, x, f"BH{BH} {a}x{b} hd{HD}")
+                body = (f" {body_name(ca, ca.time_hs_body(*x))} body"
+                        if kind == "time" else "")
+                check_kernel(name, x, f"BH{BH} {a}x{b} hd{HD}{body}")
                 del x
     # past 256 keys the bf16 tensor-core kernels refuse the launch
     for name in TENSOR_CORE:
@@ -466,7 +517,11 @@ def phase_kernels(ca, smi: str) -> dict:
 
             t_lib = median_ms(sdpa_grad) - t_lib
         err = check_kernel(name, x, f"{label} f{f} n{n} (timed inputs)")
-        if name == "time_attention_bwd":
+        if name in STREAMING and name in HS_KERNELS:
+            body = body_name(ca, ca.time_hs_body(*x))
+            print(f"body {name} bf16 {label} f{f} n{n}: {body}", flush=True)
+            check(body == "streaming", f"{name} timed on the {body} body")
+        if name in ("time_attention_bwd", "time_attention_hs_bwd"):
             # fixed summation order, no atomics: the same bits twice
             again = [call(kernel, name, x) for _ in range(2)]
             torch.cuda.synchronize()
@@ -491,6 +546,35 @@ def phase_kernels(ca, smi: str) -> dict:
                       "bound_ms": bound, "bound_by": bound_by,
                       "max_abs_err": err, "dtype": "bfloat16", "shape": shape}
         del x, lay
+    # K5's scalar body, the route of the shapes the streaming body does not
+    # take: at the timed shape with q one element off a 16-byte boundary
+    # (the same work as the streaming rows above), and at f 17
+    for name in ("time_attention_hs_fwd", "time_attention_hs_bwd"):
+        kernel, bwd = getattr(ca, name), name.endswith("bwd")
+        rows[name]["scalar_body"] = []
+        for ff, off in ((f, True), (17, False)):
+            x = list(hs_inputs(B * HEADS, ff, n, torch.bfloat16, seed=B + ff,
+                               grad=bwd))
+            if off:
+                x[0] = misaligned(x[0])
+            body = body_name(ca, ca.time_hs_body(*x))
+            label = (f"BH{B * HEADS} f{ff} n{n}"
+                     + (" q off 16 bytes" if off else ""))
+            check(body == "scalar", f"{name} {label}: {body} body")
+            err = check_kernel(name, x, f"{label} {body} body")
+            t_kernel = median_ms(lambda: kernel(*x))
+            t_device = device_ms(lambda: kernel(*x))
+            bound, _ = bound_ms(name, B * HEADS, ff, n, D=HD)
+            print(f"time {name} bf16 {label}: {body} body, kernel "
+                  f"{t_kernel:.4f} ms (device {t_device:.4f} ms), bound "
+                  f"{bound:.4f} ms; the streaming body at f{f}: "
+                  f"{rows[name]['ms']:.4f} ms (device "
+                  f"{rows[name]['device_ms']:.4f} ms) [{smi}]", flush=True)
+            rows[name]["scalar_body"].append({
+                "shape": [B * HEADS, ff, n, HD], "q_off_16_bytes": off,
+                "ms": t_kernel, "device_ms": t_device, "bound_ms": bound,
+                "max_abs_err": err})
+            del x
     for dtype, B in ((torch.bfloat16, 4), (torch.float32, 4)):
         for name in FWD:
             kernel, plain = getattr(ca, name), getattr(ca, f"{name}_plain")
@@ -884,12 +968,16 @@ def phase_head_split(ca, smi: str) -> dict:
 
         # ---- the main path, counted --------------------------------------
         ca.reset_launch_counts()
-        got = run("pallas")
+        with recorded_bodies(ca) as bodies:
+            got = run("pallas")
         torch.cuda.synchronize()
         counts = dict(ca.launches)
         # --------------------------------------------------------------------
         kernel = "grouped_attention" if axis == "space" else "time_attention_hs"
-        print(f"head-split {axis} f{f} launches: {counts}", flush=True)
+        print(f"head-split {axis} f{f} launches: {counts}; K5 bodies "
+              f"{bodies}", flush=True)
+        check(bodies == (["streaming"] * 2 if axis == "time" else []),
+              f"head-split {axis} f{f}: K5 bodies {bodies}")
         for name, c in counts.items():
             want = 1 if name in (f"{kernel}_fwd", f"{kernel}_bwd") else 0
             check(c == want, f"{name}: {c} launches in one {axis} op call, "
@@ -1210,7 +1298,7 @@ def main() -> None:
     t0 = time.perf_counter()
     lib = load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    for name in STREAMING:  # K2's instantiations' resources
+    for name in STREAMING:  # K2's and K5's streaming instantiations
         attributes = getattr(lib, f"egovlp_{name}_attributes")
         for dtype, code in (("bfloat16", 1), ("float32", 0)):
             for f in (4, 16):
@@ -1246,16 +1334,20 @@ def main() -> None:
     torch.cuda.empty_cache()
     cli_counts = phase_train_cli(ca, smi)
 
-    kernels = [{"name": name, "route": "cuda",
-                "source": f"egovlp_tpu_torch/kernels/csrc/{name}.cu",
+    def sources(name):
+        return {"source": f"egovlp_tpu_torch/kernels/csrc/{name}.cu",
+                "sources": [f"egovlp_tpu_torch/kernels/csrc/{f}"
+                            for f in (f"{name}.cu", BODIES.get(name))
+                            if f is not None]}
+
+    kernels = [{"name": name, "route": "cuda", **sources(name),
                 "replaces": replaces, "launches": train_counts[name],
                 "launches_by_path": {"serving": serve_counts[name],
                                      "training": train_counts[name],
                                      "train_cli": cli_counts[name]},
                 **rows[name]}
                for name, replaces in KERNELS.items()]
-    kernels += [{"name": name, "route": "cuda",
-                 "source": f"egovlp_tpu_torch/kernels/csrc/{name}.cu",
+    kernels += [{"name": name, "route": "cuda", **sources(name),
                  "replaces": replaces, "launches": hs_counts[name],
                  "launches_by_path": {"head_split_op": hs_counts[name],
                                       "train_cli": cli_counts[name]},

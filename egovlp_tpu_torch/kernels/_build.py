@@ -32,11 +32,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FWD = ([_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I)
 _BWD = ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I)
-# head-split kernels: [BH, G, L, hd] (K4) or [BH, f, n, hd] (K5), q scaled
+# head-split kernels: [BH, G, L, hd] (K4) or [BH, f, n, hd] (K5, then its
+# body), q scaled
 _HS_FWD = ([_P] * 6 + [_I] * 4 + [_I, _I, _P], _I)
 _HS_BWD = ([_P] * 11 + [_I] * 4 + [_I, _I, _P], _I)
+_K5_FWD = ([_P] * 6 + [_I] * 5 + [_I, _I, _P], _I)
+_K5_BWD = ([_P] * 11 + [_I] * 5 + [_I, _I, _P], _I)
 # (L, hd) -> registers, local bytes and shared memory of a bf16
-# tensor-core kernel; (F, dtype) -> the same of a K2 instantiation
+# tensor-core kernel; (F, dtype) -> the same of a K2 or K5 streaming
+# instantiation
 _ATTRIBUTES = ([_I, _I] + [ctypes.POINTER(_I)] * 3, _I)
 _SIGNATURES = {
     "egovlp_space_attention_fwd": _FWD,
@@ -45,10 +49,12 @@ _SIGNATURES = {
     "egovlp_time_attention_bwd": _BWD,
     "egovlp_grouped_attention_fwd": _HS_FWD,
     "egovlp_grouped_attention_bwd": _HS_BWD,
-    "egovlp_time_attention_hs_fwd": _HS_FWD,
-    "egovlp_time_attention_hs_bwd": _HS_BWD,
+    "egovlp_time_attention_hs_fwd": _K5_FWD,
+    "egovlp_time_attention_hs_bwd": _K5_BWD,
     "egovlp_time_attention_fwd_attributes": _ATTRIBUTES,
     "egovlp_time_attention_bwd_attributes": _ATTRIBUTES,
+    "egovlp_time_attention_hs_fwd_attributes": _ATTRIBUTES,
+    "egovlp_time_attention_hs_bwd_attributes": _ATTRIBUTES,
     "egovlp_space_attention_fwd_attributes": _ATTRIBUTES,
     "egovlp_grouped_attention_fwd_attributes": _ATTRIBUTES,
     "egovlp_space_attention_bwd_attributes": _ATTRIBUTES,

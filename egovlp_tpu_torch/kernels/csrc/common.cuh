@@ -15,6 +15,13 @@ namespace egovlp {
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
+// bodies of the head-split time kernels K5, the `body` argument of their
+// entry points (kernels/cuda_attention.py, time_hs_body): the 16-byte
+// streaming body of time_attention_stream.cuh, or the scalar shared-memory
+// body, which takes the shapes the streaming body does not
+constexpr int kStreamBody = 0;
+constexpr int kScalarBody = 1;
+
 // K1's softmax runs in base 2, as the Pallas space bodies do: log2(e) is
 // folded into the q scaling before q is rounded, and ln(2) restores dK
 constexpr double kLog2e = 1.4426950408889634;

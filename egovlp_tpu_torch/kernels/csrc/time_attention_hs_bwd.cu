@@ -16,29 +16,46 @@
 // As in the Pallas body every value is widened to float32 on load and the
 // math stays float32 up to one cast per output.  dq and the F frame rows of
 // dK and dV are written in the input dtype.  The Pallas body sums the CLS
-// rows of dK and dV over all F x N queries of a bh (:242-243); here each CTA
-// writes each of its columns' float32 share to scratch [BH, N, hd], which
-// the wrapper sums over N and casts once: deterministic, no atomics.
+// rows of dK and dV over all F x N queries of a bh (:242-243); here the
+// kernel writes float32 shares of them to scratch, which the wrapper sums
+// and casts once: deterministic, no atomics.
 //
 // What bounds it on an H100: device memory.  Each element of q, k, v and do
 // takes part in only F + 1 multiply-adds per product; the kernel has to
 // read those four and write dq, dk, dv once, with coalesced accesses.
 //
-// Design: as K5-fwd, one CTA per (bh, block of NB patch columns), NB as many
-// as fit in a 64 KB budget (columns_for_smem: 15 at F 4, 3 at F 16, hd 64),
-// because the Pallas program's whole [F, N, hd] slab per bh does not fit in
-// a CTA.  A frame's rows of the block are NB x hd contiguous elements: the
-// CTA stages q, do, k and v as float32 with coalesced loads (rows padded by
-// one float), the CLS key and value once.  Threads then take (column,
-// query, key) logit and dp entries, (column, query) softmax rows, and
-// (frame, column, channel) outputs in turn: frame g's dq row and its dK and
-// dV rows (sums over the F query frames of the column); the stores are
-// contiguous per frame again.  The CTA size follows from its shared memory
-// (threads_for_smem).
+// Design: two bodies, picked as for K5-fwd (cuda_attention.py,
+// time_hs_body).
+//  - kStreamBody: the 16-byte streaming body of time_attention_stream.cuh
+//    (bwd_kernel, K5's layout), which K2-bwd shares.  A warp takes one
+//    block of 32 / P adjacent patch columns of one bh (4 columns of hd 64
+//    at bf16): p, dl and dq's 16-byte slices per query, p and dl kept in a
+//    per-warp shared table, then dK and dV a key at a time.  The warp sums
+//    its columns' CLS grads over its column groups with xor shuffles, and
+//    one lane a slice writes the block's share to scratch
+//    [BH, ceil(N / (32 / P)), hd].  (K2's warps walk runs of 4 columns in
+//    turn; one block a warp puts more warps in flight, and the scratch is
+//    still 1/32 of the bytes the kernel moves at hd 64.)
+//    Shapes as K5-fwd's streaming body.  K5 takes q already scaled and gives dq = dl K, so the
+//    body runs at scale 1, where K2's products with the scale are exact.
+//  - kScalarBody, for the other shapes: as K5-fwd's scalar body, one CTA
+//    per (bh, block of NB patch columns), NB as many as fit in a 64 KB
+//    budget (columns_for_smem: 15 at F 4, 3 at F 16, hd 64), because the
+//    Pallas program's whole [F, N, hd] slab per bh does not fit in a CTA.
+//    A frame's rows of the block are NB x hd contiguous elements: the CTA
+//    stages q, do, k and v as float32 with coalesced loads (rows padded by
+//    one float), the CLS key and value once.  Threads then take (column,
+//    query, key) logit and dp entries, (column, query) softmax rows, and
+//    (frame, column, channel) outputs in turn: frame g's dq row and its dK
+//    and dV rows (sums over the F query frames of the column); the stores
+//    are contiguous per frame again.  Each column's share of the CLS grads
+//    goes to scratch [BH, N, hd].  The CTA size follows from its shared
+//    memory (threads_for_smem).
 
 #include <math.h>
 
 #include "common.cuh"
+#include "time_attention_stream.cuh"
 
 namespace egovlp {
 namespace {
@@ -204,23 +221,45 @@ int launch_time_hs_bwd(const void* q, const void* k, const void* v, const void* 
 }  // namespace
 }  // namespace egovlp
 
-// Launches on `stream` of device `device`; returns a cudaError_t code.
-// dcls_k, dcls_v: float32 [BH, N, hd], each patch column's share of the CLS
-// grads.
+// Launches `body` (kStreamBody or kScalarBody) on `stream` of device
+// `device`; returns a cudaError_t code.  dcls_k, dcls_v: float32 scratch,
+// the CLS grads' shares: [BH, ceil(N / (32 / P)), hd], one row a block of
+// 32 / P patch columns of the streaming body (P = k2::lanes_per_head(hd,
+// 16-byte slice's channels)), or [BH, N, hd], one row a patch column of the
+// scalar body.
 extern "C" int egovlp_time_attention_hs_bwd(const void* q, const void* k, const void* v,
                                             const void* cls_k, const void* cls_v,
                                             const void* dout, void* dq, void* dk, void* dv,
                                             void* dcls_k, void* dcls_v, int BH, int F, int N,
-                                            int hd, int dtype, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                                            int hd, int body, int dtype, int device,
+                                            void* stream) {
+  const cudaError_t err = egovlp::k2::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == egovlp::kBFloat16)
-    return egovlp::launch_time_hs_bwd<__nv_bfloat16>(q, k, v, cls_k, cls_v, dout, dq, dk,
-                                                     dv, dcls_k, dcls_v, BH, F, N, hd,
-                                                     device, s);
-  if (dtype == egovlp::kFloat32)
-    return egovlp::launch_time_hs_bwd<float>(q, k, v, cls_k, cls_v, dout, dq, dk, dv,
-                                             dcls_k, dcls_v, BH, F, N, hd, device, s);
+  using egovlp::k2::launch_bwd;
+  if (body == egovlp::kStreamBody) {  // q comes scaled: scale 1
+    if (dtype == egovlp::kBFloat16)
+      return launch_bwd<__nv_bfloat16, true>(q, k, v, cls_k, cls_v, dout, dq, dk, dv, dcls_k,
+                                             dcls_v, BH, F, N, hd, 1, 1.0f, s);
+    if (dtype == egovlp::kFloat32)
+      return launch_bwd<float, true>(q, k, v, cls_k, cls_v, dout, dq, dk, dv, dcls_k, dcls_v,
+                                     BH, F, N, hd, 1, 1.0f, s);
+  } else if (body == egovlp::kScalarBody) {
+    if (dtype == egovlp::kBFloat16)
+      return egovlp::launch_time_hs_bwd<__nv_bfloat16>(q, k, v, cls_k, cls_v, dout, dq, dk,
+                                                       dv, dcls_k, dcls_v, BH, F, N, hd,
+                                                       device, s);
+    if (dtype == egovlp::kFloat32)
+      return egovlp::launch_time_hs_bwd<float>(q, k, v, cls_k, cls_v, dout, dq, dk, dv,
+                                               dcls_k, dcls_v, BH, F, N, hd, device, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Registers a thread and local (spill) bytes a thread of the streaming
+// instantiation a launch with F frames at `dtype` takes, and the shared
+// memory a CTA of it takes at hd 64; returns a cudaError_t code.
+extern "C" int egovlp_time_attention_hs_bwd_attributes(int F, int dtype, int* regs,
+                                                       int* local_bytes, int* smem) {
+  return egovlp::k2::attributes<true, true>(F, dtype, regs, local_bytes, smem);
 }

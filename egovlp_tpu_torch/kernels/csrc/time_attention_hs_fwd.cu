@@ -16,23 +16,39 @@
 // multiply-adds per product; the kernel has to read q, k, v and write out
 // once, with coalesced accesses.
 //
-// Design: the Pallas program owns the whole [F, N, hd] slab of one bh
-// (~800 KB of float32 per tensor at F 16, N 196, hd 64), far over the
-// 227 KB a CTA can use.  The patch column is the independent unit, so the
-// columns are split across CTAs: one CTA per (bh, block of NB columns), NB
-// as many as fit in a 64 KB budget (columns_for_smem in common.cuh: 20 at
-// F 4, 4 at F 16, hd 64).  A frame's rows of the block are NB x hd
-// contiguous elements, so the CTA stages q, k and v as float32 with
-// coalesced loads (rows padded by one float so threads on different rows hit
-// different banks), with the CLS key and value once.  Threads then take
-// (column, query, key) logits, (column, query) softmax rows and (frame,
-// column, channel) outputs in turn; the stores are contiguous per frame
-// again.  The last block's ragged edge is bounded by its own column count.
-// The CTA size follows from its shared memory (threads_for_smem).
+// Design: two bodies; the wrapper picks one by shape, dtype and alignment
+// before the launch (cuda_attention.py, time_hs_body) and passes it here.
+//  - kStreamBody: the 16-byte streaming body of time_attention_stream.cuh
+//    (fwd_kernel, K5's layout), which K2 shares.  For one bh and one frame
+//    the rows of consecutive patch columns are contiguous hd-wide rows, so
+//    a warp takes 32 / P adjacent columns (P lanes of 16 bytes a row: 4
+//    columns of hd 64 at bf16, 512 contiguous bytes a row), holds their
+//    key, value (and, up to 8 frames, query) rows in registers, runs each
+//    softmax in registers after xor shuffles over the column's P lanes,
+//    and stores each output slice as one 16-byte store.  All columns read
+//    the one CLS row.  It takes F from 1 to 16, hd a multiple of 8 (bf16)
+//    or 4 (float32) up to 32 slices, and 16-byte aligned tensors, and
+//    refuses the rest.
+//  - kScalarBody, for the shapes outside that set: the Pallas program owns
+//    the whole [F, N, hd] slab of one bh (~800 KB of float32 per tensor at
+//    F 16, N 196, hd 64), far over the 227 KB a CTA can use.  The patch
+//    column is the independent unit, so the columns are split across CTAs:
+//    one CTA per (bh, block of NB columns), NB as many as fit in a 64 KB
+//    budget (columns_for_smem in common.cuh: 20 at F 4, 4 at F 16, hd 64).
+//    A frame's rows of the block are NB x hd contiguous elements, so the
+//    CTA stages q, k and v as float32 with coalesced loads (rows padded by
+//    one float so threads on different rows hit different banks), with the
+//    CLS key and value once.  Threads then take (column, query, key)
+//    logits, (column, query) softmax rows and (frame, column, channel)
+//    outputs in turn; the stores are contiguous per frame again.  The last
+//    block's ragged edge is bounded by its own column count.  The CTA size
+//    follows from its shared memory (threads_for_smem).  It refuses a
+//    shape whose one column passes the opt-in shared memory.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "time_attention_stream.cuh"
 
 namespace egovlp {
 namespace {
@@ -148,19 +164,37 @@ int launch_time_hs(const void* q, const void* k, const void* v, const void* ck,
 }  // namespace
 }  // namespace egovlp
 
-// Launches on `stream` of device `device`; returns a cudaError_t code.
+// Launches `body` (kStreamBody or kScalarBody) on `stream` of device
+// `device`; returns a cudaError_t code.
 extern "C" int egovlp_time_attention_hs_fwd(const void* q, const void* k, const void* v,
                                             const void* cls_k, const void* cls_v, void* out,
-                                            int BH, int F, int N, int hd, int dtype,
+                                            int BH, int F, int N, int hd, int body, int dtype,
                                             int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = egovlp::k2::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == egovlp::kBFloat16)
-    return egovlp::launch_time_hs<__nv_bfloat16>(q, k, v, cls_k, cls_v, out, BH, F, N, hd,
-                                                 device, s);
-  if (dtype == egovlp::kFloat32)
-    return egovlp::launch_time_hs<float>(q, k, v, cls_k, cls_v, out, BH, F, N, hd, device,
-                                         s);
+  using egovlp::k2::launch_fwd;
+  if (body == egovlp::kStreamBody) {  // q comes scaled: scale 1
+    if (dtype == egovlp::kBFloat16)
+      return launch_fwd<__nv_bfloat16, true>(q, k, v, cls_k, cls_v, out, BH, F, N, hd, 1, 1.0f,
+                                             s);
+    if (dtype == egovlp::kFloat32)
+      return launch_fwd<float, true>(q, k, v, cls_k, cls_v, out, BH, F, N, hd, 1, 1.0f, s);
+  } else if (body == egovlp::kScalarBody) {
+    if (dtype == egovlp::kBFloat16)
+      return egovlp::launch_time_hs<__nv_bfloat16>(q, k, v, cls_k, cls_v, out, BH, F, N, hd,
+                                                   device, s);
+    if (dtype == egovlp::kFloat32)
+      return egovlp::launch_time_hs<float>(q, k, v, cls_k, cls_v, out, BH, F, N, hd, device,
+                                           s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Registers a thread and local (spill) bytes a thread of the streaming
+// instantiation a launch with F frames at `dtype` takes (`smem`: 0, it uses
+// none); returns a cudaError_t code.
+extern "C" int egovlp_time_attention_hs_fwd_attributes(int F, int dtype, int* regs,
+                                                       int* local_bytes, int* smem) {
+  return egovlp::k2::attributes<true, false>(F, dtype, regs, local_bytes, smem);
 }

@@ -28,13 +28,16 @@ body each way, ``csrc/attention_fwd_mma.cuh`` and
 ``csrc/attention_bwd_mma.cuh``), which take at most 256 keys (L + 1) and
 hd a multiple of 16 up to 128 (the backward: within the device's shared
 memory, so L <= 224 at hd 112 and L <= 207 at hd 128): any other bf16
-shape raises.  Their float32 launches, and K5, run scalar CUDA-core
-bodies.  K2, forward and backward, at both dtypes, is one 16-byte
-streaming body (``csrc/time_attention_stream.cuh``: a lane owns a 16-byte
-slice of every row, a warp a patch column and a slice of heads), which
-takes F from 1 to 16 frames, any N, and hd a multiple of 8 (bf16) or 4
-(float32) up to 32 slices, with 16-byte aligned tensors; any other shape
-raises.  There is no other K2 body.
+shape raises.  Their float32 launches run scalar CUDA-core bodies.  K2,
+forward and backward, at both dtypes, is one 16-byte streaming body
+(``csrc/time_attention_stream.cuh``: a lane owns a 16-byte slice of every
+row, a warp a patch column and a slice of heads), which takes F from 1 to
+16 frames, any N, and hd a multiple of 8 (bf16) or 4 (float32) up to 32
+slices, with 16-byte aligned tensors; any other shape raises.  There is no
+other K2 body.  K5 runs the same streaming body on its own layout (a warp
+takes 32 / P adjacent patch columns of one head) wherever it takes the
+shape, and its scalar shared-memory body elsewhere: ``time_hs_body``
+picks one before the launch.
 """
 
 from __future__ import annotations
@@ -103,23 +106,25 @@ def _launch(name: str, inputs, outputs, args) -> None:
     launches[name] += 1
 
 
-def _fwd(name, plain, x, **kw):
+def _fwd(name, plain, x, extra=(), **kw):
     """``x = (q, k, v, cls_k, cls_v)``; ``kw`` are the kernel's scalars
-    after the shape (``heads``, ``scale`` for K1/K2; none for K4/K5)."""
+    after the shape (``heads``, ``scale`` for K1/K2; none for K4/K5), and
+    ``extra`` the kernel's scalars after them that the twin does not take
+    (K5's body)."""
     q = x[0]
     _check(*x, kw.get("heads", 1))
     if q.device.type == "cpu":
         return plain(*x, **kw)
     out = torch.empty_like(q)
-    _launch(name, x, (out,), (*q.shape, *kw.values()))
+    _launch(name, x, (out,), (*q.shape, *kw.values(), *extra))
     return out
 
 
-def _bwd(name, plain, part_shape, x, **kw):
+def _bwd(name, plain, part_shape, x, extra=(), **kw):
     """dq, dk, dv and the CLS grads ``[B, 1, D]`` for ``x = (q, k, v, cls_k,
     cls_v, do)``: the kernel writes each group's float32 share of the CLS
     grads to ``part_shape = [B, groups, D]`` scratch, summed here over the
-    groups and cast once."""
+    groups and cast once.  ``kw`` and ``extra`` as for ``_fwd``."""
     q = x[0]
     _check(*x[:5], kw.get("heads", 1), x[5])
     if q.device.type == "cpu":
@@ -130,7 +135,7 @@ def _bwd(name, plain, part_shape, x, **kw):
                              dtype=q.dtype).unbind(0)
     parts = torch.empty((2, *part_shape), device=q.device, dtype=torch.float32)
     _launch(name, x, (dq, dk, dv, parts[0], parts[1]),
-            (*q.shape, *kw.values()))
+            (*q.shape, *kw.values(), *extra))
     dck, dcv = parts.sum(dim=2, keepdim=True).to(q.dtype).unbind(0)
     return dq, dk, dv, dck, dcv
 
@@ -285,7 +290,7 @@ def time_attention_bwd_plain(q, k, v, cls_k, cls_v, do, *, heads: int,
 
 
 # patch columns one warp of K2-bwd walks, summing their CLS grads; its
-# scratch has one row a run (``kRun`` in ``csrc/time_attention_bwd.cu``)
+# scratch has one row a run (``kRun`` in ``csrc/time_attention_stream.cuh``)
 TIME_BWD_RUN = 4
 
 
@@ -389,11 +394,36 @@ def time_attention_hs_fwd_plain(q, k, v, cls_k, cls_v) -> torch.Tensor:
     return _frames((e / e.sum(dim=-1, keepdim=True)) @ vc, q.dtype)
 
 
+# K5's bodies, the ``body`` argument of its C entry points (``kStreamBody``,
+# ``kScalarBody`` in ``csrc/common.cuh``)
+TIME_HS_STREAM, TIME_HS_SCALAR = 0, 1
+# the most frames the streaming body holds (``kFrameCap``)
+STREAM_FRAMES = 16
+
+
+def time_hs_body(*tensors) -> int:
+    """The body K5 runs on ``tensors`` (its inputs, q ``[BH, f, n, hd]``
+    first): ``TIME_HS_STREAM`` where the 16-byte streaming body takes them
+    (f from 1 to 16, hd a multiple of a 16-byte slice's channels, 8 at
+    bf16 and 4 at float32, and at most 32 slices, every tensor on a 16-byte
+    boundary), else ``TIME_HS_SCALAR``.  Their outputs, allocated by the
+    wrappers, are then aligned too; the streaming launcher refuses a shape
+    it does not take rather than switch bodies."""
+    q = tensors[0]
+    f, hd = q.shape[1], q.shape[-1]
+    kn = 16 // q.element_size()
+    if (1 <= f <= STREAM_FRAMES and hd % kn == 0 and hd // kn <= 32
+            and all(t.data_ptr() % 16 == 0 for t in tensors)):
+        return TIME_HS_STREAM
+    return TIME_HS_SCALAR
+
+
 def time_attention_hs_fwd(q, k, v, cls_k, cls_v) -> torch.Tensor:
     """K5-fwd: each patch column's f frame queries attend over
     [CLS; column], per (batch * head)."""
-    return _fwd("time_attention_hs_fwd", time_attention_hs_fwd_plain,
-                (q, k, v, cls_k, cls_v))
+    x = (q, k, v, cls_k, cls_v)
+    return _fwd("time_attention_hs_fwd", time_attention_hs_fwd_plain, x,
+                extra=(time_hs_body(*x),))
 
 
 def time_attention_hs_bwd_plain(q, k, v, cls_k, cls_v, do):
@@ -415,12 +445,28 @@ def time_attention_hs_bwd_plain(q, k, v, cls_k, cls_v, do):
             dvc[:, :, :1].sum(dim=1).to(dt))
 
 
+def time_hs_bwd_parts(q, body: int) -> tuple:
+    """The shape of K5-bwd's CLS scratch for ``body``: one row a warp of
+    the streaming body, which takes a block of 32 / P patch columns (P
+    lanes of 16 bytes a head: a power of two from 8 to 32), on a shape it
+    takes; one row a patch column for the scalar body."""
+    BH, _, N, hd = q.shape
+    if body == TIME_HS_SCALAR:
+        return BH, N, hd
+    kn, lanes = 16 // q.element_size(), 8
+    while lanes * kn < hd:
+        lanes *= 2
+    return BH, -(-N // (32 // lanes)), hd
+
+
 def time_attention_hs_bwd(q, k, v, cls_k, cls_v, do):
     """K5-bwd: ``(dq, dk, dv, dcls_k [BH, 1, hd], dcls_v [BH, 1, hd])``;
-    the kernel writes each patch column's share of the CLS grads."""
-    BH, _, N, hd = q.shape
+    the kernel writes float32 shares of the CLS grads
+    (``time_hs_bwd_parts``)."""
+    x = (q, k, v, cls_k, cls_v, do)
+    body = time_hs_body(*x)
     return _bwd("time_attention_hs_bwd", time_attention_hs_bwd_plain,
-                (BH, N, hd), (q, k, v, cls_k, cls_v, do))
+                time_hs_bwd_parts(q, body), x, extra=(body,))
 
 
 # --------------------------------------------------------------------------

@@ -12,7 +12,10 @@ At bf16 K1 and K4, forward and backward, run on the tensor cores
 float32 launches keep the scalar bodies.  K2, forward and backward, is a
 16-byte streaming body at both dtypes (``csrc/time_attention_stream.cuh``)
 that computes in float32 and casts once, as its twin does: its bf16
-outputs too stay within relative L2 1e-3 of the twin.
+outputs too stay within relative L2 1e-3 of the twin.  K5 runs the same
+streaming body where it takes the shape and its scalar body elsewhere
+(``cuda_attention.time_hs_body``); both compute in float32 and cast once,
+and are held to relative L2 1e-3 at bf16 too.
 
 Tolerances: float32 1e-4 (same math, another summation order); bf16 2e-2
 for the forward kernels and 5e-2 for the backward kernels on unit-normal
@@ -411,3 +414,117 @@ def test_cuda_time_streaming_refuses_unaligned_tensors(cuda_device, name):
     x[0] = flat[1:1 + x[0].numel()].view(x[0].shape).copy_(x[0])
     with pytest.raises(RuntimeError, match="launch failed"):
         _call(getattr(ca, name), name, x, 2)
+
+
+K5 = ("time_attention_hs_fwd", "time_attention_hs_bwd")
+
+
+def _k5_tol(name, dtype):
+    """Max abs limits of K5: float32 1e-4 / 2e-4; bf16 4e-2 forward (2 to
+    17 keys, outputs up to ~5, where one ulp is 3.1e-2) and 2.5e-1
+    backward (dq not multiplied by the scale)."""
+    if dtype == torch.float32:
+        return 1e-4 if name.endswith("fwd") else 2e-4
+    return 4e-2 if name.endswith("fwd") else 2.5e-1
+
+
+def _misalign(t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, device=t.device, dtype=t.dtype)
+    out = flat[1:1 + t.numel()].view(t.shape).copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K5)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
+@pytest.mark.parametrize("f", [1, 4, 8, 16, 20])
+@pytest.mark.parametrize("n", [1, 61, 196, 197])
+def test_cuda_time_hs_bodies_match_plain(cuda_device, name, dtype, hd, f, n):
+    # f up to 16 on the streaming body (each instantiation below and at its
+    # capacity; n not a multiple of the 32 / P columns a warp takes leaves
+    # a ragged last block), f 20 on the scalar body; hd 96 leaves lanes of
+    # a head without channels
+    x = _inputs(cuda_device, dtype, 3, f, n, hd, seed=f * 1000 + n + hd,
+                grad=name.endswith("bwd"), heads=1)
+    body = ca.TIME_HS_STREAM if f <= 16 else ca.TIME_HS_SCALAR
+    assert ca.time_hs_body(*x) == body
+    ca.reset_launch_counts()
+    got = getattr(ca, name)(*x)
+    torch.cuda.synchronize()
+    assert ca.launches[name] == 1
+    want = getattr(ca, f"{name}_plain")(*x)
+    if name.endswith("fwd"):
+        got, want = (got,), (want,)
+    _assert_close_to_twin(got, want, dtype, _k5_tol(name, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K5)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("i", [0, 3, 5])
+def test_cuda_time_hs_unaligned_inputs_take_the_scalar_body(cuda_device, name,
+                                                           dtype, i):
+    # q, cls_k or do contiguous but one element past a 16-byte boundary
+    x = _inputs(cuda_device, dtype, 2, 4, 61, 64, seed=7, grad=True, heads=1)
+    x[i] = _misalign(x[i])
+    if name.endswith("fwd"):
+        x = x[:5]
+    assert ca.time_hs_body(*x) == (ca.TIME_HS_SCALAR if i < len(x)
+                                   else ca.TIME_HS_STREAM)
+    ca.reset_launch_counts()
+    got = getattr(ca, name)(*x)
+    torch.cuda.synchronize()
+    assert ca.launches[name] == 1
+    want = getattr(ca, f"{name}_plain")(*x)
+    if name.endswith("fwd"):
+        got, want = (got,), (want,)
+    _assert_close_to_twin(got, want, dtype, _k5_tol(name, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K5)
+@pytest.mark.parametrize("dtype,f,hd,unaligned", [
+    (BF16, 17, 64, False), (F32, 17, 64, False),  # past 16 frames
+    (BF16, 4, 36, False), (F32, 2, 6, False),     # hd not whole slices
+    (BF16, 4, 264, False), (F32, 4, 132, False),  # more than 32 slices
+    (BF16, 4, 64, True)])                         # q off 16 bytes
+def test_cuda_time_hs_stream_launcher_refuses_shapes(cuda_device, name, dtype,
+                                                     f, hd, unaligned):
+    # asked for the streaming body on a shape it does not take, the launcher
+    # refuses: it never runs the scalar body in its place
+    x = _inputs(cuda_device, dtype, 2, f, 3, hd, seed=8,
+                grad=name.endswith("bwd"), heads=1)
+    if unaligned:
+        x[0] = _misalign(x[0])
+    q = x[0]
+    outs = [torch.empty_like(q)]
+    if name.endswith("bwd"):  # scratch of the scalar body's shape: ample
+        outs += [torch.empty_like(q), torch.empty_like(q)]
+        outs += torch.empty((2, *ca.time_hs_bwd_parts(q, ca.TIME_HS_SCALAR)),
+                            device=q.device).unbind(0)
+    ca.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ca._launch(name, x, outs, (*q.shape, ca.TIME_HS_STREAM))
+    assert ca.launches[name] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("f", [4, 16, 20])
+def test_cuda_time_hs_bwd_is_deterministic(cuda_device, dtype, f):
+    # each output element has one writer and each sum a fixed order (the
+    # streaming body's CLS grads over its run, then over its column groups
+    # by xor shuffles): two launches give the same bits, on both bodies
+    x = _inputs(cuda_device, dtype, 2, f, 196, 768, seed=9, grad=True,
+                heads=12)
+    first = ca.time_attention_hs_bwd(*x)
+    second = ca.time_attention_hs_bwd(*x)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i
