@@ -120,7 +120,35 @@ Phases, each of which passes or raises (any failure exits non-zero):
    events recorded after each step, so no step waits on the host) over
    the steps after the first and its clips/s through the real Loader, the
    median time the loop waited on the Loader for a batch, and EgoMCQ
-   items/s of each validation with the time it waited on its Loader.
+   items/s of each validation with the time it waited on its Loader;
+8. DDP (``torch.distributed``, one process a GPU):
+   (a) world 1 over NCCL in this process: torchrun's environment,
+   ``core.dist.init_distributed``, then phase 5's weights and 3 batches
+   (32 clips a step) through ``recipes.data_parallel`` (the
+   ``DistributedDataParallel`` wrapper ``run_task`` uses) and the epoch
+   function.  Checks: the losses and the parameters after step 3 equal
+   phase 5's Trainer run bit for bit (DDP at world 1 copies gradients
+   through its buckets and divides by 1), every parameter got a
+   gradient, launches 12 / 12 / 11 / 12 a step; then 12 more steps each
+   of the DDP-wrapped model and an unwrapped copy, in turns, and prints
+   both medians (their difference is DDP's own cost at world 1) beside
+   phase 5's step function.  (b) world 2 over gloo, two spawned ranks on GPU 0 (NCCL refuses
+   two ranks on one device), each ``chip_smoke.py --ddp-worker`` with its
+   own time limit and exit code: each rank takes 8 clips of each of phase
+   5's batches (16 rows with their negatives; the global batch is phase
+   5's 32 rows), 3 steps through DDP, the checkpoint (rank 0 writes, both
+   wait), then ``cli.eval`` on its shard of phase 7's tree at a tiny depth
+   (2 video blocks, 2 text layers, full width, 4 items a batch).  Checks:
+   the two ranks' losses are identical; against one process on the whole
+   batch, the first step's loss within 5e-3 (measured 2.7e-4), its
+   DDP-averaged gradient at cosine >= 0.999 (measured 0.99977) and norm
+   ratio within 1e-2 (measured 0.99907; a 1/N gradient reads 0.5), the
+   parameters' update after 3 steps at cosine >= 0.99 (measured 0.99545:
+   AdamW's sign-like first steps lift bf16 noise on small gradients); the
+   checkpoint loads strictly into a one-process model; both ranks' EgoMCQ
+   accuracies equal one process's (every batch has one process's shapes).
+   Launches 12 / 12 / 11 / 12 a step on each rank.  Measured on NVIDIA
+   H100 80GB HBM3, 700 W; bf16 throughout.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object with one
 entry per kernel, and ``{"ok": true, "device": {...}}``.
@@ -132,6 +160,9 @@ import contextlib
 import copy
 import ctypes
 import json
+import logging
+import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -715,27 +746,34 @@ def egoclip_batch(rng, B=16, S=30):
     return batch
 
 
+class NoUpdate:
+    """An optimizer that keeps the gradients the step computed."""
+
+    def __init__(self, m):
+        self.m = m
+
+    def zero_grad(self, set_to_none=True):
+        self.m.zero_grad(set_to_none=set_to_none)
+
+    def step(self):
+        pass
+
+
 def cosine(a, b) -> float:
     a, b = a.double().flatten(), b.double().flatten()
     return float((a @ b) / (a.norm() * b.norm()))
 
 
-def phase_train(ca, smi: str) -> dict:
-    import torch
-
-    from egovlp_tpu_torch import build
-    from egovlp_tpu_torch.io.checkpoints import CheckpointManager
+def train_setup(steps_per_epoch: int = 3):
+    """Phase 5's training set-up, shared by phase 8: the architecture of
+    ``configs/pt/egoclip.json`` with random time attention, the AdamW
+    schedule and the EgoClip step."""
     from egovlp_tpu_torch.io.config import load_config
-    from egovlp_tpu_torch.train.recipes import make_train_epoch_fn, to_device
-    from egovlp_tpu_torch.train.state import make_optimizer
     from egovlp_tpu_torch.train.steps import make_egoclip_train_step
-    from egovlp_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     config = load_config(str(ROOT / "configs/pt/egoclip.json"))
     # non-zero time attention (see phase_slice)
     config.override("arch.args.video_params.time_init", "random")
-    arch = config["arch"]
-    steps_per_epoch, epochs = 3, 2
     opt_args = config["optimizer"]["args"]
     sched = dict(base_lr=float(opt_args["lr"]),
                  milestones=tuple(config["trainer"]["lr_milestones"]),
@@ -745,6 +783,22 @@ def phase_train(ca, smi: str) -> dict:
         loss_type=config["loss"]["type"],
         input_res=config["data_loader"]["args"]["video_params"]["input_res"],
         temperature=float(loss_args.get("temperature", 0.05)))
+    return config["arch"], sched, step
+
+
+def phase_train(ca, smi: str) -> tuple:
+    """Phase 5; returns the kernel launches of the Trainer run and what
+    phase 8 holds its DDP runs to."""
+    import torch
+
+    from egovlp_tpu_torch import build
+    from egovlp_tpu_torch.io.checkpoints import CheckpointManager
+    from egovlp_tpu_torch.train.recipes import make_train_epoch_fn, to_device
+    from egovlp_tpu_torch.train.state import make_optimizer
+    from egovlp_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    steps_per_epoch, epochs = 3, 2
+    arch, sched, step = train_setup(steps_per_epoch)
 
     def fresh_model(seed):
         model, cfg = build.build_model(arch, DEVICE)
@@ -761,16 +815,6 @@ def phase_train(ca, smi: str) -> dict:
     fixed = to_device(egoclip_batch(rng), DEVICE)
 
     # ---- first-step loss and gradients vs the plain-attention model ----
-    class NoUpdate:  # keeps the gradients the step computed
-        def __init__(self, m):
-            self.m = m
-
-        def zero_grad(self, set_to_none=True):
-            self.m.zero_grad(set_to_none=set_to_none)
-
-        def step(self):
-            pass
-
     def loss_and_grads(m):
         gen = torch.Generator(device=DEVICE).manual_seed(1)
         loss = step(m, NoUpdate(m), fixed, gen).item()
@@ -862,7 +906,14 @@ def phase_train(ca, smi: str) -> dict:
               for s in ("mu", "nu")), "resumed optimizer state differs")
     print(f"resume: {len(sd)} tensors and the optimizer state bit-equal",
           flush=True)
-    del model, opt
+    # phase 8 holds the DDP runs to this run's first epoch (3 steps)
+    ref = {"initial": {k: v.cpu() for k, v in initial.items()},
+           "epoch1": torch.load(Path(tmp.name) / "checkpoint-epoch1.pth",
+                                map_location="cpu",
+                                weights_only=True)["state_dict"],
+           "batches": batches, "losses": values[:steps_per_epoch],
+           "step_ms": step_ms, "sched": sched}
+    del model, opt, initial
     tmp.cleanup()
 
     # ---- 4 steps on one batch lower its loss ----------------------------
@@ -874,7 +925,7 @@ def phase_train(ca, smi: str) -> dict:
     check(same[-1] < same[0], "the loss on a repeated batch did not fall")
 
     profile_steps(fresh, fresh_opt, step, batches, smi)
-    return counts
+    return counts, ref
 
 
 def profile_steps(model, opt, step, batches, smi: str) -> None:
@@ -1093,8 +1144,22 @@ def write_egoclip_tree(root: Path) -> None:
     (root / "vocab.txt").write_text("\n".join(CLI_VOCAB))
 
 
-def phase_train_cli(ca, smi: str) -> dict:
-    """Phase 7; returns the kernel launches of the first ``cli.train`` run."""
+def tree_overrides(data: Path) -> list:
+    """``cli`` overrides that read the synthetic EgoClip tree ``data``."""
+    return [
+        f"data_loader.args.data_dir={json.dumps(str(data))}",
+        f"data_loader.args.meta_dir={json.dumps(str(data))}",
+        "data_loader.args.num_workers=16",
+        # a decode failure raises instead of feeding black frames
+        'data_loader.args.video_params.loading="strict"',
+        f"arch.args.text_params.vocab={json.dumps(str(data / 'vocab.txt'))}",
+    ]
+
+
+def phase_train_cli(ca, smi: str, root: Path) -> dict:
+    """Phase 7 in the directory ``root`` (its EgoClip tree, ``root /
+    'data'``, serves phase 8 too); returns the kernel launches of the
+    first ``cli.train`` run."""
     import torch
 
     from egovlp_tpu_torch.cli import eval as cli_eval
@@ -1103,21 +1168,13 @@ def phase_train_cli(ca, smi: str) -> dict:
     from egovlp_tpu_torch.data.pipeline import Loader
     from egovlp_tpu_torch.train import recipes
 
-    tmp = tempfile.TemporaryDirectory()
-    root = Path(tmp.name)
     t0 = time.perf_counter()
     write_egoclip_tree(root / "data")
     decoder = "the native decoder" if native.available() else "OpenCV"
     print(f"train_cli: EgoClip tree written in {time.perf_counter() - t0:.1f}"
           f" s; frames decoded by {decoder}; {decode_stack()}", flush=True)
     data = root / "data"
-    overrides = [
-        f"data_loader.args.data_dir={json.dumps(str(data))}",
-        f"data_loader.args.meta_dir={json.dumps(str(data))}",
-        "data_loader.args.num_workers=16",
-        # a decode failure raises instead of feeding black frames
-        'data_loader.args.video_params.loading="strict"',
-        f"arch.args.text_params.vocab={json.dumps(str(data / 'vocab.txt'))}",
+    overrides = tree_overrides(data) + [
         'arch.args.video_params.time_init="random"',
         f"trainer.save_dir={json.dumps(str(root / 'results'))}",
     ]
@@ -1248,7 +1305,7 @@ def phase_train_cli(ca, smi: str) -> dict:
         torch.cuda.empty_cache()
 
         # ---- cli.eval and the eval-only preset on the epoch-2 weights -----
-        eval_ov = [a for o in overrides[:5] for a in ("-o", o)]
+        eval_ov = [a for o in tree_overrides(data) for a in ("-o", o)]
         got = cli_eval.main(["--config", pt, "--checkpoint", ckpt2,
                              *eval_ov])
         print(f"cli.eval on epoch 2: {got}, in-run {in_run}", flush=True)
@@ -1269,8 +1326,333 @@ def phase_train_cli(ca, smi: str) -> dict:
         recipes.make_egoclip_train_step = make_step
         recipes.evaluate_egomcq = evaluate
         Loader.epoch = epoch_fn
+    return counts
+
+
+# ---- phase 8: DDP ------------------------------------------------------------
+
+DDP_CLIPS = 8        # clips a rank takes in phase 8 (b); + 8 negatives each
+DDP_TIMEOUT_S = 420  # each world-2 rank's time limit
+# phase 8 (b)'s limits against the one-process run on the concatenated
+# batch, bf16 (see the module notes): the first step's loss, its gradient
+# (cosine and norm ratio over all parameters) and the parameters' update
+# after 3 steps (cosine of p - p0 over all parameters)
+DDP_LOSS_TOL = 5e-3
+DDP_GRAD_COS, DDP_GRAD_NORM = 0.999, 1e-2
+DDP_UPDATE_COS = 0.99
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ddp_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's environment of a rank on this host; every rank on GPU 0
+    (LOCAL_RANK 0), so that the run needs one card."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def ddp_eval_args(data: Path) -> list:
+    """``cli.eval`` on the synthetic tree at full width and a tiny depth
+    (2 video blocks, 2 text layers), 4 items a batch: every rank's batches
+    are as full as one process's, so each row's products run the same
+    kernels on the same shapes."""
+    ov = tree_overrides(data) + [
+        'arch.args.video_params.time_init="random"',
+        "arch.args.video_params.depth=2", "arch.args.text_params.n_layers=2",
+        "trainer.val_batch_size=4"]
+    return ["--config", str(ROOT / "configs/pt/egoclip.json"),
+            *[a for o in ov for a in ("-o", o)]]
+
+
+def flat_grads(model):
+    import torch
+
+    return torch.cat([p.grad.float().flatten() for p in model.parameters()])
+
+
+def check_launches(counts: dict, n_steps: int, label: str) -> None:
+    """12 / 12 / 11 / 12 launches of K1-fwd / K2-fwd / K1-bwd / K2-bwd a
+    training step (phase 5), no K4 / K5."""
+    for name, c in counts.items():
+        per_step = 11 if name == "space_attention_bwd" else 12
+        want = per_step * n_steps if name in KERNELS else 0
+        check(c == want, f"{label}: {name} {c} launches, expected {want}")
+
+
+def phase_ddp(ca, smi: str, ref: dict, data: Path) -> dict:
+    """Phase 8; returns the kernel launches of the world-1 NCCL run."""
+    import torch
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from egovlp_tpu_torch import build
+    from egovlp_tpu_torch.cli import eval as cli_eval
+    from egovlp_tpu_torch.core.dist import init_distributed
+    from egovlp_tpu_torch.io.checkpoints import CheckpointManager
+    from egovlp_tpu_torch.train.recipes import (
+        data_parallel,
+        make_train_epoch_fn,
+        resolve_device,
+        step_generator,
+        to_device,
+    )
+    from egovlp_tpu_torch.train.state import make_optimizer
+
+    arch, sched, step = train_setup()
+    n_steps = len(ref["losses"])
+
+    # ---- (a) world 1 over NCCL, in this process --------------------------
+    env = ddp_env(0, 1, free_port())
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        init_distributed("cuda")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"{dist.get_backend()} group of {dist.get_world_size()}")
+        model, _ = build.build_model(arch, DEVICE)
+        model.load_state_dict(ref["initial"])
+        opt, _ = make_optimizer(model, **sched)
+        device = resolve_device(DEVICE)  # run_task's: cuda:{LOCAL_RANK}
+        check(device == torch.device("cuda", 0), f"device {device}")
+        ddp = data_parallel(model, device)
+        check(isinstance(ddp, DistributedDataParallel), "no DDP wrapper")
+        losses, times = [], []
+
+        def timed_step(m, o, batch, gen):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(m, o, batch, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            return loss
+
+        # ---- the main path, counted -----------------------------------
+        ca.reset_launch_counts()
+        make_train_epoch_fn([ref["batches"]], timed_step, DEVICE, seed=0)(
+            ddp, opt, 1, logging.getLogger("chip_smoke"))
+        torch.cuda.synchronize()
+        counts = dict(ca.launches)
+        # ----------------------------------------------------------------
+        print(f"ddp world 1 (nccl) launches over {n_steps} steps: {counts}",
+              flush=True)
+        check_launches(counts, n_steps, "ddp world 1")
+        missing = [k for k, p in model.named_parameters() if p.grad is None]
+        check(not missing, f"parameters without a gradient: {missing}")
+        values = [float(v) for v in losses]
+        sd = model.state_dict()
+        d_param = max((sd[k].cpu() - w).abs().max().item()
+                      for k, w in ref["epoch1"].items())
+        d_loss = max(abs(a - b) for a, b in zip(values, ref["losses"]))
+        print(f"ddp world 1 (nccl) vs the Trainer path: losses {values} vs "
+              f"{ref['losses']} (max diff {d_loss:.3e}); parameters after "
+              f"step {n_steps}: max diff {d_param:.3e}; every one of "
+              f"{len(sd)} parameters got a gradient", flush=True)
+        check(d_loss == 0.0 and d_param == 0.0,
+              "world-1 DDP differs from the one-process Trainer path")
+        # DDP's own cost: the DDP-wrapped model against an unwrapped copy
+        # on the same batches, in turns (plain, DDP, DDP, plain, ...) so
+        # that the host's drift falls on both; DDP rebuilt its buckets at
+        # step 2, before these
+        plain, _ = build.build_model(arch, DEVICE)
+        plain.load_state_dict(ref["initial"])
+        plain_opt, _ = make_optimizer(plain, **sched)
+        turns = {"plain": (plain, plain_opt, []), "ddp": (ddp, opt, [])}
+        for i in range(12):
+            order = ("plain", "ddp") if i % 2 == 0 else ("ddp", "plain")
+            for name in order:
+                m, o, ts = turns[name]
+                batch = to_device(ref["batches"][i % n_steps], DEVICE)
+                gen = step_generator(DEVICE, 0, 2, i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(m, o, batch, gen)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+        ddp_ms = statistics.median(turns["ddp"][2])
+        plain_ms = statistics.median(turns["plain"][2])
+        print(f"ddp world 1 (nccl) step, 32 clips: first 3 steps "
+              f"{[round(t, 2) for t in times]} ms; then in turns with an "
+              f"unwrapped copy, 12 steps each: DDP {ddp_ms:.2f} ms, "
+              f"unwrapped {plain_ms:.2f} ms, DDP's own cost "
+              f"{ddp_ms - plain_ms:+.2f} ms; phase 5's step function "
+              f"{ref['step_ms']:.2f} ms [{smi}]", flush=True)
+        del plain, plain_opt, turns
+        del ddp, model, opt
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+
+    # ---- (b) world 2 over gloo, both ranks on GPU 0 ----------------------
+    tmp = tempfile.TemporaryDirectory()
+    out = Path(tmp.name)
+    try:
+        torch.save(ref["initial"], out / "initial.pt")
+        np.savez(out / "batches.npz", **{
+            f"{i}/{k}": v for i, b in enumerate(ref["batches"])
+            for k, v in b.items()})
+        # the one-process gradient of the first step on the whole batch
+        model, _ = build.build_model(arch, DEVICE)
+        model.load_state_dict(ref["initial"])
+        loss0 = step(model, NoUpdate(model),
+                     to_device(ref["batches"][0], DEVICE),
+                     step_generator(DEVICE, 0, 1, 0)).item()
+        check(loss0 == ref["losses"][0], "the first step is not phase 5's")
+        g_ref = flat_grads(model).cpu()
+        del model
+        torch.cuda.empty_cache()
+
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker",
+             str(out), str(data)], env={**os.environ, **ddp_env(r, 2, port)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            # meanwhile, the one-process EgoMCQ validation
+            want_mcq = cli_eval.main(ddp_eval_args(data))
+            outs = [p.communicate(timeout=DDP_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            tail = "\n".join(o.splitlines()[-25:])
+            print(f"ddp world 2 rank {r} exit {p.returncode}, output tail:\n"
+                  f"{tail}", flush=True)
+            check(p.returncode == 0, f"world-2 rank {r} failed")
+        res = [json.loads((out / f"rank{r}.json").read_text())
+               for r in range(2)]
+        for r, x in enumerate(res):
+            check_launches(x["launches"], n_steps, f"ddp world 2 rank {r}")
+            check(not x["missing"], f"rank {r}: no gradient for "
+                                    f"{x['missing']}")
+        check(res[0]["losses"] == res[1]["losses"],
+              f"the ranks' losses differ: {res[0]['losses']} "
+              f"{res[1]['losses']}")
+        d_loss = abs(res[0]["losses"][0] - loss0)
+        g = torch.load(out / "grads.pt", weights_only=True)
+        g_cos = cosine(g, g_ref)
+        g_ratio = (g.double().norm() / g_ref.double().norm()).item()
+        # the checkpoint rank 0 wrote, strictly into a one-process model
+        fresh, _ = build.build_model(arch, "cpu")
+        payload = CheckpointManager(str(out / "ckpt")).restore(fresh)
+        check(payload["epoch"] == 1 and payload["step"] == n_steps,
+              f"checkpoint epoch {payload['epoch']} step {payload['step']}")
+        sd = fresh.state_dict()
+        upd = torch.cat([(sd[k] - w).flatten() for k, w in
+                         ref["initial"].items()])
+        upd_ref = torch.cat([(ref["epoch1"][k] - w).flatten() for k, w in
+                             ref["initial"].items()])
+        u_cos = cosine(upd, upd_ref)
+        d_param = (upd - upd_ref).abs().max().item()
+        print(f"ddp world 2 (gloo, 2 ranks on GPU 0, {DDP_CLIPS} + "
+              f"{DDP_CLIPS} clips a rank) vs one process on the 32-row "
+              f"batch: losses {res[0]['losses']} vs {ref['losses']}, first "
+              f"step diff {d_loss:.3e} (tol {DDP_LOSS_TOL}); first-step "
+              f"gradient cosine {g_cos:.6f} (>= {DDP_GRAD_COS}), norm "
+              f"ratio {g_ratio:.6f} (1 +- {DDP_GRAD_NORM}); update after "
+              f"step {n_steps}: cosine {u_cos:.6f} (>= {DDP_UPDATE_COS}), "
+              f"max abs diff {d_param:.3e}", flush=True)
+        check(d_loss <= DDP_LOSS_TOL, "world-2 loss off the one-process one")
+        check(g_cos >= DDP_GRAD_COS and abs(g_ratio - 1) <= DDP_GRAD_NORM,
+              "world-2 gradient is not the global-batch gradient")
+        check(u_cos >= DDP_UPDATE_COS, "world-2 parameters diverge")
+        print(f"ddp world 2 step (gloo all-reduce through the host), median "
+              f"over steps 2-{n_steps}: rank 0 "
+              f"{statistics.median(res[0]['step_ms'][1:]):.2f} ms, rank 1 "
+              f"{statistics.median(res[1]['step_ms'][1:]):.2f} ms [{smi}]",
+              flush=True)
+        got = [x["metrics"] for x in res]
+        print(f"ddp world 2 EgoMCQ validation: {got}; one process "
+              f"{want_mcq}", flush=True)
+        check(got[0] == got[1] == want_mcq,
+              "world-2 EgoMCQ accuracies differ from one process's")
+    finally:
         tmp.cleanup()
     return counts
+
+
+def ddp_worker(out: Path, data: Path) -> None:
+    """One rank of phase 8 (b) (``chip_smoke.py --ddp-worker OUT DATA``,
+    torchrun's environment set by phase 8): gloo on GPU 0, this rank's
+    clips of phase 5's 3 batches through the DDP-wrapped model, the
+    checkpoint (rank 0 writes), then ``cli.eval`` on its shard of the
+    synthetic tree; results to ``OUT/rank{r}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from egovlp_tpu_torch import build
+    from egovlp_tpu_torch.cli import eval as cli_eval
+    from egovlp_tpu_torch.core.dist import init_distributed
+    from egovlp_tpu_torch.io.checkpoints import CheckpointManager
+    from egovlp_tpu_torch.kernels import cuda_attention as ca
+    from egovlp_tpu_torch.train.recipes import (
+        data_parallel,
+        make_train_epoch_fn,
+        resolve_device,
+    )
+    from egovlp_tpu_torch.train.state import make_optimizer
+
+    rank, world = init_distributed("cuda", backend="gloo")
+    device = resolve_device("cuda")
+    arch, sched, step = train_setup()
+    model, _ = build.build_model(arch, device)
+    model.load_state_dict(torch.load(out / "initial.pt", weights_only=True))
+    opt, _ = make_optimizer(model, **sched)
+    first, update = [], opt.step
+
+    def recorded_update():  # the first step's gradient, DDP-averaged
+        if not first:
+            first.append(flat_grads(model).cpu())
+        update()
+
+    opt.step = recorded_update
+    ddp = data_parallel(model, device)
+    npz = np.load(out / "batches.npz")
+    lo, hi = rank * DDP_CLIPS, (rank + 1) * DDP_CLIPS
+    batches = [{k.split("/", 1)[1]: npz[k][lo:hi] for k in npz.files
+                if k.startswith(f"{i}/")} for i in range(3)]
+    losses, times = [], []
+
+    def timed_step(m, o, batch, gen):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(m, o, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        return loss
+
+    ca.reset_launch_counts()
+    make_train_epoch_fn([batches], timed_step, device, seed=0)(
+        ddp, opt, 1, logging.getLogger("chip_smoke"))
+    torch.cuda.synchronize()
+    launches = dict(ca.launches)
+    missing = [k for k, p in model.named_parameters() if p.grad is None]
+    path = CheckpointManager(str(out / "ckpt")).save_epoch(1, ddp, opt, 0.0)
+    check(path.exists(), f"rank {rank}: no checkpoint after the barrier")
+    if rank == 0:
+        torch.save(first[0], out / "grads.pt")
+    del ddp, model, opt, first
+    torch.cuda.empty_cache()
+    metrics = cli_eval.main(ddp_eval_args(data))
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "losses": losses, "step_ms": times, "launches": launches,
+        "missing": missing, "metrics": metrics}))
+    dist.destroy_process_group()
+    print(f"ddp worker rank {rank} of {world}: done", flush=True)
 
 
 def main() -> None:
@@ -1285,6 +1667,9 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--ddp-worker"]:  # a rank of phase 8 (b)
+        ddp_worker(Path(sys.argv[2]), Path(sys.argv[3]))
+        return
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1328,11 +1713,17 @@ def main() -> None:
     rows = phase_kernels(ca, smi)
     serve_counts, _ = phase_slice(ca, smi)
     torch.cuda.empty_cache()
-    train_counts = phase_train(ca, smi)
+    train_counts, ref = phase_train(ca, smi)
     torch.cuda.empty_cache()
     hs_counts = phase_head_split(ca, smi)
     torch.cuda.empty_cache()
-    cli_counts = phase_train_cli(ca, smi)
+    tree = tempfile.TemporaryDirectory()
+    try:
+        cli_counts = phase_train_cli(ca, smi, Path(tree.name))
+        torch.cuda.empty_cache()
+        ddp_counts = phase_ddp(ca, smi, ref, Path(tree.name) / "data")
+    finally:
+        tree.cleanup()
 
     def sources(name):
         return {"source": f"egovlp_tpu_torch/kernels/csrc/{name}.cu",
@@ -1344,7 +1735,8 @@ def main() -> None:
                 "replaces": replaces, "launches": train_counts[name],
                 "launches_by_path": {"serving": serve_counts[name],
                                      "training": train_counts[name],
-                                     "train_cli": cli_counts[name]},
+                                     "train_cli": cli_counts[name],
+                                     "ddp_world1": ddp_counts[name]},
                 **rows[name]}
                for name, replaces in KERNELS.items()]
     kernels += [{"name": name, "route": "cuda", **sources(name),

@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from egovlp_tpu_torch.core.dist_eval import process_shard
+from egovlp_tpu_torch.core.dist import process_shard
 from egovlp_tpu_torch.core.precision import Linear, compute_dtype
 from egovlp_tpu_torch.data.datasets import DatasetConfig, dataset_factory
 from egovlp_tpu_torch.data.pipeline import Loader

@@ -2,15 +2,18 @@
 
     python -m egovlp_tpu_torch.cli.eval --config configs/eval/egomcq.json \
         --checkpoint results/models/.../checkpoint-epoch2.pth \
-        [--split val] [-o dotted.path=value ...] [--device cuda]
+        [--split val] [-o dotted.path=value ...] [--device cuda] \
+        [--multihost]
 
 Counterpart of the ``egoclip``/``egomcq`` branch of
 ``egovlp_tpu/cli/eval.py`` (:46-86): EgoMCQ accuracies of the config's
 model, printed as JSON.  ``--checkpoint`` takes a torch pickle (a
 published ``egovlp.pth`` or the port's own ``checkpoint-epoch{n}.pth``,
 whose payload holds ``state_dict``), loaded strictly.  The device is
-``cuda`` unless ``--device cpu`` is given.  The other tasks are still to
-port (``ROADMAP.md``, Queue A, A11).
+``cuda`` unless ``--device cpu`` is given.  ``--multihost`` (under
+torchrun) joins the process group first: each rank scores its shard and
+every rank gets the whole dataset's accuracies; rank 0 prints them.  The
+other tasks are still to port (``ROADMAP.md``, Queue A, A11).
 """
 
 from __future__ import annotations
@@ -19,8 +22,11 @@ import argparse
 import json
 import os
 
+import torch.distributed as dist
+
 from egovlp_tpu_torch import build
 from egovlp_tpu_torch.cli.train import parse_overrides
+from egovlp_tpu_torch.core.dist import init_distributed, is_main_process
 from egovlp_tpu_torch.evals.egomcq import evaluate_egomcq
 from egovlp_tpu_torch.io.config import load_config
 from egovlp_tpu_torch.io.logging import setup_logging
@@ -37,8 +43,12 @@ def main(argv=None):
                     metavar="dotted.path=value",
                     help="arbitrary config override (JSON-parsed value)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join torchrun's process group before running")
     args = ap.parse_args(argv)
 
+    if args.multihost:
+        init_distributed(args.device)
     logger = setup_logging()
     config = load_config(args.config)
     parse_overrides(config, args.override)
@@ -65,7 +75,10 @@ def main(argv=None):
         metrics = evaluate_egomcq(model, loader, input_res)
     finally:
         loader.close()
-    print(json.dumps(metrics, indent=2, default=float))
+    if is_main_process():
+        print(json.dumps(metrics, indent=2, default=float))
+    if args.multihost:
+        dist.destroy_process_group()
     return metrics
 
 

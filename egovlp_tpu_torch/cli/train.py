@@ -2,13 +2,18 @@
 
     python -m egovlp_tpu_torch.cli.train --config configs/pt/egoclip.json \
         [--lr 3e-5] [--bs 16] [--resume PATH] [-o trainer.epochs=2 ...] \
-        [--device cuda]
+        [--device cuda] [--multihost]
 
-Counterpart of ``egovlp_tpu/cli/train.py``: one process on one device
-(``cuda`` by default; it raises when no CUDA device is present unless
-``--device cpu`` is given).  ``--bs`` is the batch size of this process.
-Multi-process runs (``--multihost``) come with DDP (``ROADMAP.md``,
-Queue A, A9).
+    torchrun --nproc_per_node=N -m egovlp_tpu_torch.cli.train \
+        -c configs/pt/egoclip.json --multihost
+
+Counterpart of ``egovlp_tpu/cli/train.py``: ``cuda`` by default (it
+raises when no CUDA device is present unless ``--device cpu`` is given).
+``--multihost`` joins the process group of torchrun's environment
+(``core.dist.init_distributed``: NCCL on ``cuda``, gloo on ``cpu``)
+before anything else, and the run trains one process per GPU with the
+global-batch EgoNCE; without it the run is one process on one device.
+``--bs`` is the batch size of this process.
 """
 
 from __future__ import annotations
@@ -16,6 +21,9 @@ from __future__ import annotations
 import argparse
 import json
 
+import torch.distributed as dist
+
+from egovlp_tpu_torch.core.dist import init_distributed
 from egovlp_tpu_torch.io.config import load_config
 from egovlp_tpu_torch.train.recipes import run_task
 
@@ -44,15 +52,22 @@ def main(argv=None):
                     metavar="dotted.path=value",
                     help="arbitrary config override (JSON-parsed value)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join torchrun's process group before running")
     args = ap.parse_args(argv)
 
+    if args.multihost:
+        init_distributed(args.device)
     config = load_config(args.config)
     if args.lr is not None:
         config.override("optimizer.args.lr", args.lr)
     if args.bs is not None:
         config.override("data_loader.args.batch_size", args.bs)
     parse_overrides(config, args.override)
-    return run_task(config, resume=args.resume, device=args.device)
+    out = run_task(config, resume=args.resume, device=args.device)
+    if args.multihost:
+        dist.destroy_process_group()
+    return out
 
 
 if __name__ == "__main__":

@@ -44,7 +44,10 @@ def mcq_scores(model, batch: Dict[str, np.ndarray],
 def evaluate_egomcq(model, loader, input_res: int = 224) -> Dict[str, float]:
     """EgoMCQ accuracies over ``loader``'s epoch 0, whose batches hold
     ``frames_options``, ``text_ids``, ``text_mask``, ``correct``, ``type``
-    and ``_index``."""
+    and ``_index``.  In a multi-process run each rank scores its shard
+    (``build.build_loader`` shards by rank) and ``gather_eval`` gives every
+    rank the whole dataset's rows, so every rank returns the same
+    accuracies."""
     model.eval()
     preds, gts, types, idxs = [], [], [], []
     for batch in loader.epoch(0):
@@ -52,7 +55,7 @@ def evaluate_egomcq(model, loader, input_res: int = 224) -> Dict[str, float]:
         gts.append(np.asarray(batch["correct"]))
         types.append(np.asarray(batch["type"]))
         idxs.append(np.asarray(batch["_index"]))
-    g = gather_eval(
+    g, _ = gather_eval(
         {"preds": np.concatenate(preds), "gts": np.concatenate(gts),
          "types": np.concatenate(types)},
         index=np.concatenate(idxs))

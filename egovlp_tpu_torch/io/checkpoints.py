@@ -11,6 +11,11 @@ Each file is written to a temporary name and renamed into place, so a
 crash mid-write leaves the previous checkpoint whole.  An Orbax directory
 from the JAX package is not read: export it to a ``.pth`` first
 (``python -m egovlp_tpu.cli.convert export_torch``).
+
+In a multi-process run rank 0 alone writes, the module inside a
+``DistributedDataParallel`` wrapper (no ``module.`` prefixes, so that a
+one-process run, ``cli.eval`` and the reference's loader read it), and
+every rank waits at a barrier after a save; every rank restores.
 """
 
 from __future__ import annotations
@@ -23,29 +28,34 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from egovlp_tpu_torch.core.dist import barrier, is_main_process, unwrap
+
 ARCH = "FrozenInTime"
 
 
 class CheckpointManager:
     def __init__(self, directory: str):
         self.directory = Path(directory).absolute()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        if is_main_process():
+            self.directory.mkdir(parents=True, exist_ok=True)
 
     def save_epoch(self, epoch: int, model: torch.nn.Module,
                    optimizer: torch.optim.Optimizer, monitor_best: float,
                    is_best: bool = False) -> Path:
-        payload = {
-            "state_dict": model.state_dict(),
-            "epoch": int(epoch),
-            "monitor_best": float(monitor_best),
-            "arch": ARCH,
-            "optimizer": optimizer.state_dict(),
-            "step": int(optimizer.param_groups[0].get("count", 0)),
-        }
         path = self.directory / f"checkpoint-epoch{epoch}.pth"
-        self._write(path, payload)
-        if is_best:
-            self._write(self.directory / "model_best.pth", payload)
+        if is_main_process():
+            payload = {
+                "state_dict": unwrap(model).state_dict(),
+                "epoch": int(epoch),
+                "monitor_best": float(monitor_best),
+                "arch": ARCH,
+                "optimizer": optimizer.state_dict(),
+                "step": int(optimizer.param_groups[0].get("count", 0)),
+            }
+            self._write(path, payload)
+            if is_best:
+                self._write(self.directory / "model_best.pth", payload)
+        barrier()
         return path
 
     def _write(self, path: Path, payload: Dict[str, Any]) -> None:
@@ -75,7 +85,7 @@ class CheckpointManager:
         if p is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         payload = torch.load(p, map_location="cpu", weights_only=True)
-        model.load_state_dict(payload["state_dict"], strict=True)
+        unwrap(model).load_state_dict(payload["state_dict"], strict=True)
         if optimizer is not None:
             optimizer.load_state_dict(payload["optimizer"])
         return payload

@@ -3,7 +3,9 @@
 Counterpart of ``egovlp_tpu/io/config.py``: ``load_config``, dotted-path
 ``get_path`` and ``override``, ``clone``, and run directories in the
 reference's layout, ``{save_dir}/{models,log,tf}/{name}/{timestamp}``,
-with the config written to ``models/.../config.json``.
+with the config written to ``models/.../config.json``.  In a
+multi-process run every rank takes rank 0's timestamp, so all ranks name
+one run directory, and rank 0 alone creates it and writes the config.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import json
 import os
 from pathlib import Path
 from typing import Any, Dict, Optional
+
+from egovlp_tpu_torch.core.dist import broadcast_object, is_main_process
 
 
 class Config(dict):
@@ -43,13 +47,15 @@ class Config(dict):
                       ) -> Dict[str, Path]:
         save_dir = Path(self.get_path("trainer.save_dir", "results"))
         name = self.get("name", "run")
-        ts = timestamp or datetime.datetime.now().strftime("%m%d_%H%M%S")
+        ts = timestamp or broadcast_object(
+            datetime.datetime.now().strftime("%m%d_%H%M%S"))
         dirs = {kind: save_dir / kind / name / ts
                 for kind in ("models", "log", "tf")}
-        for d in dirs.values():
-            d.mkdir(parents=True, exist_ok=True)
-        with open(dirs["models"] / "config.json", "w") as f:
-            json.dump(dict(self), f, indent=2, default=str)
+        if is_main_process():
+            for d in dirs.values():
+                d.mkdir(parents=True, exist_ok=True)
+            with open(dirs["models"] / "config.json", "w") as f:
+                json.dump(dict(self), f, indent=2, default=str)
         return dirs
 
 

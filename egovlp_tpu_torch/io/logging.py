@@ -2,8 +2,10 @@
 
 Counterpart of ``setup_logging`` in ``egovlp_tpu/io/logging.py`` (:21-38):
 a stdout handler and, given a directory, a rotating ``info.log`` on the
-``egovlp_tpu_torch`` logger.  The TensorBoard ``MetricLogger`` and the
-``Profiler`` are still to port (``ROADMAP.md``, Queue A, A12).
+``egovlp_tpu_torch`` logger.  In a multi-process run only rank 0 logs
+at INFO (the JAX ``MetricLogger`` is enabled on process 0 only); the
+other ranks log warnings and errors.  The TensorBoard ``MetricLogger``
+and the ``Profiler`` are still to port (``ROADMAP.md``, Queue A, A12).
 """
 
 from __future__ import annotations
@@ -14,13 +16,15 @@ import sys
 from pathlib import Path
 from typing import Optional
 
+from egovlp_tpu_torch.core.dist import is_main_process
+
 
 def setup_logging(save_dir: Optional[str] = None,
                   level: int = logging.INFO) -> logging.Logger:
     logger = logging.getLogger("egovlp_tpu_torch")
+    logger.setLevel(level if is_main_process() else logging.WARNING)
     if logger.handlers:
         return logger
-    logger.setLevel(level)
     fmt = logging.Formatter(
         "%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     sh = logging.StreamHandler(sys.stdout)

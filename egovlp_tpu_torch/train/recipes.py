@@ -13,10 +13,17 @@ Counterpart of ``egovlp_tpu/train/recipes.py`` for the ``egoclip`` task:
 * ``run_task`` (:133-413): the model (seeded init, then
   ``load_pretrained``), the EgoClip Loader of every ``data_loader`` entry,
   AdamW with step-LR, the EgoClip step, EgoMCQ validation of every entry
-  each epoch, run directories, checkpoints and resume.  It runs in one
-  process on one device: ``cuda`` unless the caller asks for ``cpu``.
-  The config's batch size is the process's.  Mesh parallelism, more than
-  one device and the other tasks raise (``ROADMAP.md``, Queue A).
+  each epoch, run directories, checkpoints and resume.  It runs on
+  ``cuda`` unless the caller asks for ``cpu``: one process on one device,
+  or one process per GPU under ``torch.distributed`` (``core.dist``).
+  There every rank builds and loads the model from the same seed and
+  checkpoint, trains it wrapped in ``DistributedDataParallel`` (the
+  gradient all-reduce overlaps the backward) on its shard of every loader,
+  and validates the unwrapped model on its shard of the val loader.  The
+  config's batch size is the process's (the reference's per-GPU
+  convention): the global batch is world size times it, and an epoch is
+  the per-rank loader's length.  Tensor, sequence and ZeRO parallelism and
+  the other tasks raise (``ROADMAP.md``, Queue A).
 """
 
 from __future__ import annotations
@@ -26,8 +33,14 @@ from typing import Any, Callable, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from egovlp_tpu_torch import build
+from egovlp_tpu_torch.core.dist import (
+    in_process_group,
+    local_rank,
+    process_shard,
+)
 from egovlp_tpu_torch.evals.egomcq import evaluate_egomcq
 from egovlp_tpu_torch.io.config import Config
 from egovlp_tpu_torch.io.logging import setup_logging
@@ -113,7 +126,8 @@ def _all_dl_args(config):
 
 def check_ported(config) -> None:
     """Raise ``NotImplementedError`` on a task or a parallelism key the
-    port does not run yet."""
+    port does not run yet, and ``ValueError`` on a data-parallel size
+    (``mesh.data``, ``n_devices``) other than the world size."""
     task = infer_task(config)
     if task != "egoclip":
         raise NotImplementedError(
@@ -124,20 +138,47 @@ def check_ported(config) -> None:
         raise NotImplementedError(
             f"mesh {mesh}: tensor, sequence and ZeRO parallelism are not "
             "ported (ROADMAP.md, Queue A, A13)")
-    if int(mesh.get("data", -1)) > 1 or int(config.get("n_devices") or 1) > 1:
+    world = process_shard()[1]
+    for key, n in (("mesh.data", int(mesh.get("data", -1))),
+                   ("n_devices", int(config.get("n_devices") or -1))):
+        if n != -1 and n != world:
+            raise ValueError(
+                f"{key}={n} but the world size is {world}: the port runs "
+                "one process per GPU (torchrun --nproc_per_node=N ... "
+                "--multihost)")
+    drop_path = float(config.get_path(
+        "arch.args.video_params.drop_path_rate", 0.0) or 0.0)
+    if world > 1 and drop_path > 0:
         raise NotImplementedError(
-            "more than one device comes with DDP (ROADMAP.md, Queue A, A9, "
-            "the DDP item); run one process on one GPU")
+            f"drop_path_rate={drop_path} in a world of {world}: drop-path "
+            "masks of the global batch are not ported (ROADMAP.md, Queue "
+            "A, A9)")
 
 
 def resolve_device(device: "torch.device | str") -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device must be present."""
+    """``device`` as a ``torch.device``; a CUDA device must be present.  In
+    a process group ``'cuda'`` is this process's GPU, ``cuda:{LOCAL_RANK}``
+    (the one ``DistributedDataParallel`` is bound to)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device}: no CUDA device is available (pass "
             "device='cpu' to run on the CPU)")
+    if device.type == "cuda" and device.index is None and in_process_group():
+        device = torch.device("cuda", local_rank())
     return device
+
+
+def data_parallel(model: torch.nn.Module, device: torch.device
+                  ) -> torch.nn.Module:
+    """``model`` wrapped in ``DistributedDataParallel`` when a process group
+    exists (at world 1 too, as ``torchrun --nproc_per_node=1`` runs it;
+    every parameter gets a gradient in the EgoClip step, so no
+    unused-parameter search), ``model`` itself otherwise."""
+    if not in_process_group():
+        return model
+    return DistributedDataParallel(
+        model, device_ids=[device.index] if device.type == "cuda" else None)
 
 
 def run_task(config, resume: Optional[str] = None,
@@ -149,7 +190,8 @@ def run_task(config, resume: Optional[str] = None,
     check_ported(config)
     device = resolve_device(device)
     task = infer_task(config)
-    logger.info("task: %s on %s", task, device)
+    rank, world = process_shard()
+    logger.info("task: %s on %s (rank %d of %d)", task, device, rank, world)
 
     arch = config["arch"]
     model, _ = build.build_model(arch, device)
@@ -236,7 +278,7 @@ def run_task(config, resume: Optional[str] = None,
         logger.info("resumed from %s (epoch %d) at epoch %d", resume,
                     payload["epoch"], trainer.cfg.start_epoch)
     try:
-        trainer.train(model, optimizer)
+        trainer.train(data_parallel(model, device), optimizer)
     finally:
         for l in train_loaders + val_loaders:
             l.close()

@@ -7,7 +7,10 @@ metric with min/max mode and best tracking, early stop after more than
 ``save_period`` epochs or on improvement.  The task specifics are two
 callables: ``train_epoch_fn(model, optimizer, epoch, logger) -> log`` and
 ``valid_fn(model, epoch, logger) -> log``.  The model and the optimizer
-are the train state.
+are the train state.  In a multi-process run ``train`` takes the
+``DistributedDataParallel`` wrapper: the epoch function trains through
+it, validation takes the module inside it, and the checkpoint manager
+saves that module.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from egovlp_tpu_torch.core.dist import unwrap
 from egovlp_tpu_torch.io.checkpoints import CheckpointManager
 
 
@@ -76,9 +80,10 @@ class Trainer:
               optimizer: torch.optim.Optimizer) -> torch.nn.Module:
         cfg = self.cfg
         not_improved = 0
+        module = unwrap(model)
 
         if cfg.init_val and self.valid_fn is not None:
-            log = self.valid_fn(model, cfg.start_epoch - 1, self.logger)
+            log = self.valid_fn(module, cfg.start_epoch - 1, self.logger)
             self.logger.info("init_val: %s", log)
             if cfg.epochs < cfg.start_epoch:  # eval-only configs (epochs: 0)
                 return model
@@ -86,7 +91,7 @@ class Trainer:
         for epoch in range(cfg.start_epoch, cfg.epochs + 1):
             log = self.train_epoch_fn(model, optimizer, epoch, self.logger)
             if self.valid_fn is not None:
-                log.update(self.valid_fn(model, epoch, self.logger))
+                log.update(self.valid_fn(module, epoch, self.logger))
             for k, v in log.items():
                 self.logger.info("  epoch %d: %s: %s", epoch, k, v)
 

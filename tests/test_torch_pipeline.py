@@ -214,14 +214,26 @@ def test_gather_eval_dedupes_shard_pads_like_jax(monkeypatch):
     index = np.array([0, 2, 4, 1, 3, 0])
     arrays = {"preds": np.arange(12.0).reshape(6, 2),
               "types": np.array([1, 2, 1, 2, 1, 1])}
-    got = dist_eval.gather_eval(arrays, index)
+    got, objs = dist_eval.gather_eval(arrays, index)
     want, _ = jax_gather_eval(arrays, index)
-    assert got.keys() == want.keys()
+    assert got.keys() == want.keys() and objs is None
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
     np.testing.assert_array_equal(got["preds"][:, 0], [0, 6, 2, 8, 4])
-    assert dist_eval.gather_eval(arrays)["types"].tolist() == arrays[
+    assert dist_eval.gather_eval(arrays)[0]["types"].tolist() == arrays[
         "types"].tolist()
+    # a world of 2 reaches the collective: here a stand-in all-gather that
+    # gives every rank's part as this rank's, one length exchange and one
+    # gather a column
+    calls = []
+
+    def all_gather(x):
+        calls.append(x.shape)
+        return [x, x]
+
     monkeypatch.setattr(dist_eval, "process_shard", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*DDP"):
-        dist_eval.gather_eval(arrays, index)
+    monkeypatch.setattr(dist_eval, "_all_gather", all_gather)
+    got, _ = dist_eval.gather_eval(arrays, index)
+    assert calls == [(1,), (6, 2), (6,), (6,)]
+    for k in want:  # the second copy is dropped as pads
+        np.testing.assert_array_equal(got[k], want[k])

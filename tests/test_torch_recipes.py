@@ -334,13 +334,21 @@ def test_cli_train_eval_only_preset_writes_no_checkpoint(tiny_run,
     ("task", "epic", "A11"), ("task", "charades", "A11"),
     ("mesh", {"model": 2}, "A13"), ("mesh", {"sequence_parallel": True},
                                     "A13"),
-    ("mesh", {"zero": 1}, "A13"), ("mesh", {"data": 2}, "A9"),
-    ("n_devices", 2, "A9")])
+    ("mesh", {"zero": 1}, "A13"), ("mesh", {"data": 2}, "world size is 1"),
+    ("n_devices", 2, "world size is 1")])
 def test_unported_keys_raise(key, value, match, tmp_path):
+    """Unported tasks and mesh axes raise NotImplementedError naming
+    ROADMAP.md; a data-parallel size other than the world size (here 1:
+    one process) raises ValueError naming both numbers."""
     cfg = Config(tiny_config("unused", "unused", "", str(tmp_path)))
     cfg.override(key, value)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{match}"):
-        recipes.run_task(cfg, device="cpu")
+    if match.startswith("world"):
+        with pytest.raises(ValueError, match=f"=2 but the {match}"):
+            recipes.run_task(cfg, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md.*{match}"):
+            recipes.run_task(cfg, device="cpu")
     assert not (tmp_path / "models").exists()
 
 
