@@ -1,19 +1,22 @@
 """Offline evaluation CLI.
 
-    python -m egovlp_tpu_torch.cli.eval --config configs/eval/egomcq.json \
+    python -m egovlp_tpu_torch.cli.eval --config configs/eval/epic.json \
         --checkpoint results/models/.../checkpoint-epoch2.pth \
-        [--split val] [-o dotted.path=value ...] [--device cuda] \
-        [--multihost]
+        [--dual_softmax] [--split test] [-o dotted.path=value ...] \
+        [--device cuda] [--multihost]
 
-Counterpart of the ``egoclip``/``egomcq`` branch of
-``egovlp_tpu/cli/eval.py`` (:46-86): EgoMCQ accuracies of the config's
-model, printed as JSON.  ``--checkpoint`` takes a torch pickle (a
-published ``egovlp.pth`` or the port's own ``checkpoint-epoch{n}.pth``,
-whose payload holds ``state_dict``), loaded strictly.  The device is
-``cuda`` unless ``--device cpu`` is given.  ``--multihost`` (under
-torchrun) joins the process group first: each rank scores its shard and
-every rank gets the whole dataset's accuracies; rank 0 prints them.  The
-other tasks are still to port (``ROADMAP.md``, Queue A, A11).
+Counterpart of ``egovlp_tpu/cli/eval.py``: the metrics of the config's
+model on its task, printed as JSON.  ``egoclip`` / ``egomcq``: EgoMCQ
+accuracies; ``epic``: nDCG and mAP, with the dual-softmax rescoring when
+``--dual_softmax`` is given; ``charades``: the 157-class mAP.  The split
+is ``--split``, else ``val`` for egoclip/egomcq and ``test`` for epic and
+charades.  ``--checkpoint`` takes a torch pickle (a published
+``egovlp.pth`` or the port's own ``checkpoint-epoch{n}.pth``, whose
+payload holds ``state_dict``), loaded strictly.  The device is ``cuda``
+unless ``--device cpu`` is given.  ``--multihost`` (under torchrun) joins
+the process group first: each rank evaluates its shard and every rank
+gets the whole dataset's metrics; rank 0 prints them.  The other tasks
+are still to port (``ROADMAP.md``, Queue A, A11).
 """
 
 from __future__ import annotations
@@ -27,10 +30,23 @@ import torch.distributed as dist
 from egovlp_tpu_torch import build
 from egovlp_tpu_torch.cli.train import parse_overrides
 from egovlp_tpu_torch.core.dist import init_distributed, is_main_process
+from egovlp_tpu_torch.evals.charades import (
+    evaluate_charades,
+    load_charades_classes,
+)
 from egovlp_tpu_torch.evals.egomcq import evaluate_egomcq
+from egovlp_tpu_torch.evals.epic_mir import embed_dataset, evaluate_epic_mir
 from egovlp_tpu_torch.io.config import load_config
 from egovlp_tpu_torch.io.logging import setup_logging
-from egovlp_tpu_torch.train.recipes import _dl_args, infer_task, resolve_device
+from egovlp_tpu_torch.metrics.mir import load_epic_annotations
+from egovlp_tpu_torch.train.recipes import (
+    _dl_args,
+    classes_file,
+    infer_task,
+    resolve_device,
+)
+
+TASKS = ("egoclip", "egomcq", "epic", "charades")
 
 
 def main(argv=None):
@@ -38,7 +54,11 @@ def main(argv=None):
     ap.add_argument("--config", "-c", required=True)
     ap.add_argument("--checkpoint", "-k", default=None,
                     help="torch .pth/.pt/.bin")
-    ap.add_argument("--split", default="val")
+    ap.add_argument("--dual_softmax", action="store_true",
+                    help="epic: dual-softmax rescoring of raw dot products")
+    ap.add_argument("--split", default=None,
+                    help="default: val (egoclip, egomcq), test (epic, "
+                         "charades)")
     ap.add_argument("--override", "-o", action="append", default=[],
                     metavar="dotted.path=value",
                     help="arbitrary config override (JSON-parsed value)")
@@ -53,9 +73,11 @@ def main(argv=None):
     config = load_config(args.config)
     parse_overrides(config, args.override)
     task = infer_task(config)
-    if task not in ("egoclip", "egomcq"):
+    if task not in TASKS:
         raise NotImplementedError(
             f"task {task!r} is not ported yet (ROADMAP.md, Queue A, A11)")
+    split = args.split or ("val" if task in ("egoclip", "egomcq")
+                           else "test")
     device = resolve_device(args.device)
     if args.checkpoint:
         if not os.path.exists(args.checkpoint):
@@ -69,10 +91,24 @@ def main(argv=None):
     tokenizer = build.build_tokenizer(
         config, int(config.get_path("arch.args.text_params.max_length", 30)))
     input_res = int(dl_args.get("video_params", {}).get("input_res", 224))
-    bs = int(config.get("trainer", {}).get("val_batch_size", 8))
-    loader = build.build_loader(dl_args, args.split, tokenizer, batch_size=bs)
+    bs = (int(config.get("trainer", {}).get("val_batch_size", 8))
+          if task in ("egoclip", "egomcq") else None)
+    loader = build.build_loader(dl_args, split, tokenizer, batch_size=bs)
+    loader.drop_last = False  # every item of the split, whichever it is
     try:
-        metrics = evaluate_egomcq(model, loader, input_res)
+        if task == "epic":
+            t, v, _ = embed_dataset(model, loader, input_res)
+            metrics = evaluate_epic_mir(
+                t, v, *load_epic_annotations(
+                    dl_args.get("meta_dir") or dl_args["data_dir"]),
+                use_dual_softmax=args.dual_softmax)
+        elif task == "charades":
+            metrics = evaluate_charades(
+                model, loader,
+                load_charades_classes(classes_file(config, dl_args)),
+                tokenizer, input_res)
+        else:
+            metrics = evaluate_egomcq(model, loader, input_res)
     finally:
         loader.close()
     if is_main_process():

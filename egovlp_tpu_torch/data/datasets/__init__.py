@@ -2,16 +2,17 @@
 
 Counterpart of ``egovlp_tpu/data/datasets/__init__.py``, under the names
 of the reference's loader factory so that configs carry over.  Ported so
-far: EgoClip pretraining and EgoMCQ evaluation.  The fine-tune and
-feature datasets the JAX registry also names raise until they are ported
-(``ROADMAP.md``, Queue A, A11).
+far: EgoClip pretraining, EgoMCQ evaluation, and the EPIC-Kitchens MIR
+and CharadesEgo fine-tunes.  The other datasets the JAX registry names
+raise until they are ported (``ROADMAP.md``, Queue A, A11).
 """
 
 from egovlp_tpu_torch.data.datasets.base import DatasetConfig, TextVideoDataset
+from egovlp_tpu_torch.data.datasets.charades import CharadesEgoDataset
 from egovlp_tpu_torch.data.datasets.egoclip import EgoClipDataset, EgoMCQDataset
+from egovlp_tpu_torch.data.datasets.epic import EpicMIRDataset
 
 NOT_PORTED = frozenset({
-    "MultiInstanceRetrieval", "EpicKitchens_MIR", "CharadesEgo",
     "Ego4D_OSCC", "Ego4D_PNR", "Ego4D_NLQ", "Ego4D_MQ", "WebVid",
     "ConceptualCaptions3M",
 })
@@ -29,6 +30,9 @@ def dataset_factory(name: str):
         "EgoClip": EgoClipDataset,
         "EgoClip_EgoMCQ": _egoclip_dispatch,
         "EgoMCQ": EgoMCQDataset,
+        "MultiInstanceRetrieval": EpicMIRDataset,
+        "EpicKitchens_MIR": EpicMIRDataset,
+        "CharadesEgo": CharadesEgoDataset,
     }
     if name in NOT_PORTED:
         raise NotImplementedError(
@@ -39,4 +43,5 @@ def dataset_factory(name: str):
 
 
 __all__ = ["DatasetConfig", "TextVideoDataset", "EgoClipDataset",
-           "EgoMCQDataset", "dataset_factory"]
+           "EgoMCQDataset", "EpicMIRDataset", "CharadesEgoDataset",
+           "dataset_factory"]

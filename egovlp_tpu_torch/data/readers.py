@@ -1,10 +1,12 @@
 """Host-side frame readers.
 
-The port's own copy of ``egovlp_tpu/data/readers.py`` (:25-247) for the
-embedding service and the EgoClip datasets: the OpenCV backend, the
-native decoder (``data/native.py``) when its library is built, a small
-per-thread cache of open handles (``acquire_video`` / ``release_video``),
-last-frame padding, the whole-video reader and the EgoClip chunked reader.
+The port's own copy of ``egovlp_tpu/data/readers.py`` (:25-291) for the
+embedding service and the EgoClip, EPIC-Kitchens and CharadesEgo
+datasets: the OpenCV backend, the native decoder (``data/native.py``)
+when its library is built, a small per-thread cache of open handles
+(``acquire_video`` / ``release_video``), last-frame padding, the
+whole-video reader, the EgoClip chunked reader, the EPIC JPEG-frame
+reader and the CharadesEgo reader.
 Each reader returns a FIXED ``[num_frames, pre, pre, 3]`` uint8 array
 (short-side resized and center cropped) and the sampled indices.
 """
@@ -226,3 +228,44 @@ def read_frames_egoclip(video_path_1: str, video_path_2: str,
         if not same:
             release_video(video_path_2, backend, v2, ok=ok)
     return _pad_to(out, len(idxs), num_frames), idxs
+
+
+def read_frames_epic(frame_dir: str, start_frame: int, stop_frame: int,
+                     num_frames: int, sample: str = "rand",
+                     fix_start: Optional[int] = None, pre_size: int = 256,
+                     rng: Optional[np.random.Generator] = None):
+    """EPIC-Kitchens pre-extracted JPEG frames, ``frame_%010d.jpg`` in
+    ``frame_dir``; a frame that does not read stays black."""
+    import cv2
+
+    idxs = sample_frames_start_end(num_frames, start_frame, stop_frame,
+                                   sample=sample, fix_start=fix_start, rng=rng)
+    out = np.zeros((len(idxs), pre_size, pre_size, 3), np.uint8)
+    for i, idx in enumerate(idxs):
+        img = cv2.imread(os.path.join(frame_dir, f"frame_{int(idx):010d}.jpg"))
+        if img is not None:
+            out[i] = _resize_center_crop_cv2(img, pre_size)
+    return _pad_to(out, len(idxs), num_frames), idxs
+
+
+def read_frames_charades(video_path: str, num_frames: int, sample: str,
+                         start_sec: Optional[float] = None,
+                         end_sec: Optional[float] = None,
+                         pre_size: int = 256,
+                         rng: Optional[np.random.Generator] = None,
+                         backend: str = "auto"):
+    """CharadesEgo: the whole video, or the frames within optional
+    second bounds scaled by the container's fps (30 when it reports
+    none)."""
+    with cached_video(video_path, backend) as v:
+        if not start_sec and not end_sec:
+            idxs = sample_frames(num_frames, max(v.frame_count, 1), sample,
+                                 rng=rng)
+        else:
+            fps = v.fps or 30.0
+            start_f = max(0, int(start_sec * fps))
+            end_f = min(int(end_sec * fps), max(v.frame_count, 1))
+            idxs = sample_frames_start_end(num_frames, start_f, end_f,
+                                           sample=sample, rng=rng)
+        frames, ok = v.read_frames(idxs, pre_size)
+    return _pad_to(frames, ok, num_frames), idxs

@@ -1,7 +1,8 @@
 """Task recipes: a config wired into loaders, the step, validation and the
 Trainer.
 
-Counterpart of ``egovlp_tpu/train/recipes.py`` for the ``egoclip`` task:
+Counterpart of ``egovlp_tpu/train/recipes.py`` for the ``egoclip``,
+``epic`` and ``charades`` tasks:
 
 * ``make_train_epoch_fn`` (:75-130): one optimizer step per loader per
   batch index (the reference zips its loaders), the batches copied to the
@@ -11,9 +12,15 @@ Counterpart of ``egovlp_tpu/train/recipes.py`` for the ``egoclip`` task:
   its randomness from its own ``torch.Generator`` on the device, seeded
   from ``(seed, epoch, step)``.
 * ``run_task`` (:133-413): the model (seeded init, then
-  ``load_pretrained``), the EgoClip Loader of every ``data_loader`` entry,
-  AdamW with step-LR, the EgoClip step, EgoMCQ validation of every entry
-  each epoch, run directories, checkpoints and resume.  It runs on
+  ``load_pretrained``), the train Loader of every ``data_loader`` entry,
+  AdamW with step-LR, the task's step and validation each epoch, run
+  directories, checkpoints and resume.  ``egoclip``: the EgoClip step and
+  EgoMCQ validation of every entry.  ``epic``: the max-margin step (margin
+  0.4 for the adaptive loss, else 0.2, unless the config sets one) and
+  nDCG / mAP on the ``test`` split, dual-softmax when the config's
+  ``dual_softmax`` is set.  ``charades``: the InfoNCE step and the
+  157-class mAP on the ``test`` split against the config's
+  ``charades_classes`` file.  It runs on
   ``cuda`` unless the caller asks for ``cpu``: one process on one device,
   or one process per GPU under ``torch.distributed`` (``core.dist``).
   There every rank builds and loads the model from the same seed and
@@ -23,7 +30,8 @@ Counterpart of ``egovlp_tpu/train/recipes.py`` for the ``egoclip`` task:
   config's batch size is the process's (the reference's per-GPU
   convention): the global batch is world size times it, and an epoch is
   the per-rank loader's length.  Tensor, sequence and ZeRO parallelism and
-  the other tasks raise (``ROADMAP.md``, Queue A).
+  the other tasks raise (``ROADMAP.md``, Queue A), as does a fine-tune
+  config with a ranking visualizer (``visualizer.type``; A12).
 """
 
 from __future__ import annotations
@@ -41,11 +49,22 @@ from egovlp_tpu_torch.core.dist import (
     local_rank,
     process_shard,
 )
+from egovlp_tpu_torch.evals.charades import (
+    evaluate_charades,
+    load_charades_classes,
+)
 from egovlp_tpu_torch.evals.egomcq import evaluate_egomcq
+from egovlp_tpu_torch.evals.epic_mir import embed_dataset, evaluate_epic_mir
 from egovlp_tpu_torch.io.config import Config
 from egovlp_tpu_torch.io.logging import setup_logging
+from egovlp_tpu_torch.metrics.mir import load_epic_annotations
 from egovlp_tpu_torch.train.state import make_optimizer
-from egovlp_tpu_torch.train.steps import make_egoclip_train_step, numeric_batch
+from egovlp_tpu_torch.train.steps import (
+    make_charades_train_step,
+    make_egoclip_train_step,
+    make_epic_train_step,
+    numeric_batch,
+)
 from egovlp_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -124,14 +143,30 @@ def _all_dl_args(config):
     return [dict(dl.get("args", dl))]
 
 
+PORTED_TASKS = ("egoclip", "epic", "charades")
+
+
+def classes_file(config, dl_args: Dict[str, Any]) -> str:
+    """The Charades class list: the config's ``charades_classes``, else
+    ``Charades_v1_classes.txt`` in the loader's meta (or data) dir."""
+    meta = dl_args.get("meta_dir", dl_args["data_dir"])
+    return config.get("charades_classes",
+                      f"{meta}/Charades_v1_classes.txt")
+
+
 def check_ported(config) -> None:
     """Raise ``NotImplementedError`` on a task or a parallelism key the
     port does not run yet, and ``ValueError`` on a data-parallel size
     (``mesh.data``, ``n_devices``) other than the world size."""
     task = infer_task(config)
-    if task != "egoclip":
+    if task not in PORTED_TASKS:
         raise NotImplementedError(
             f"task {task!r} is not ported yet (ROADMAP.md, Queue A, A11)")
+    vis = (config.get("visualizer") or {}).get("type")
+    if task != "egoclip" and vis:
+        raise NotImplementedError(
+            f"visualizer.type={vis!r}: the ranking report is not ported "
+            "(ROADMAP.md, Queue A, A12)")
     mesh = config.get("mesh") or {}
     if (int(mesh.get("model", 1)) > 1 or mesh.get("sequence_parallel")
             or mesh.get("zero") or int(mesh.get("dcn_data", 1)) > 1):
@@ -173,7 +208,7 @@ def data_parallel(model: torch.nn.Module, device: torch.device
                   ) -> torch.nn.Module:
     """``model`` wrapped in ``DistributedDataParallel`` when a process group
     exists (at world 1 too, as ``torchrun --nproc_per_node=1`` runs it;
-    every parameter gets a gradient in the EgoClip step, so no
+    every parameter gets a gradient in each task's step, so no
     unused-parameter search), ``model`` itself otherwise."""
     if not in_process_group():
         return model
@@ -231,30 +266,58 @@ def run_task(config, resume: Optional[str] = None,
         variant=opt_args.get("variant", "optax"))
 
     loss_cfg = config.get("loss", {})
+    loss_type = loss_cfg.get("type", "EgoNCE")
     loss_args = loss_cfg.get("args", {})
-    step = make_egoclip_train_step(
-        loss_type=loss_cfg.get("type", "EgoNCE"), input_res=input_res,
-        temperature=float(loss_args.get("temperature", 0.05)),
-        noun=bool(loss_args.get("noun", True)),
-        verb=bool(loss_args.get("verb", True)),
-        global_sim=str(loss_args.get("global_sim", "gather")),
-        n_micro=int(trainer_cfg.get("grad_accum", 1)))
+    if task == "egoclip":
+        step = make_egoclip_train_step(
+            loss_type=loss_type, input_res=input_res,
+            temperature=float(loss_args.get("temperature", 0.05)),
+            noun=bool(loss_args.get("noun", True)),
+            verb=bool(loss_args.get("verb", True)),
+            global_sim=str(loss_args.get("global_sim", "gather")),
+            n_micro=int(trainer_cfg.get("grad_accum", 1)))
+        # one val loader per data_loader entry; loader 0's metrics keep
+        # their names (the monitor reads them), later loaders' get a _{i}
+        # suffix.  The 5 options fold into the batch, so a val batch of 8
+        # items scores as 8 batches of 1 (the reference's batch size).
+        val_bs = int(trainer_cfg.get("val_batch_size", 8))
+        val_loaders = [build.build_loader(dict(a), "val", tokenizer,
+                                          batch_size=val_bs)
+                       for a in all_args]
 
-    # one val loader per data_loader entry; loader 0's metrics keep their
-    # names (the monitor reads them), later loaders' get a _{i} suffix.
-    # The 5 options fold into the batch, so a val batch of 8 items scores
-    # as 8 batches of 1 (the reference's batch size).
-    val_bs = int(trainer_cfg.get("val_batch_size", 8))
-    val_loaders = [build.build_loader(dict(a), "val", tokenizer,
-                                      batch_size=val_bs) for a in all_args]
+        def valid(model, epoch, logger):
+            out = {}
+            for dl_idx, vl in enumerate(val_loaders):
+                m = evaluate_egomcq(model, vl, input_res=input_res)
+                out.update(m if dl_idx == 0 else
+                           {f"{k}_{dl_idx}": v for k, v in m.items()})
+            return out
+    elif task == "epic":
+        step = make_epic_train_step(
+            loss_type=loss_type, input_res=input_res,
+            margin=float(loss_args.get(
+                "margin", 0.4 if "Adaptive" in loss_type else 0.2)),
+            fix_norm=bool(loss_args.get("fix_norm", True)))
+        val_loaders = [build.build_loader(dl_args, "test", tokenizer)]
+        annotations = dl_args.get("meta_dir") or dl_args["data_dir"]
+        use_dual_softmax = bool(config.get("dual_softmax", False))
 
-    def valid(model, epoch, logger):
-        out = {}
-        for dl_idx, vl in enumerate(val_loaders):
-            m = evaluate_egomcq(model, vl, input_res=input_res)
-            out.update(m if dl_idx == 0 else
-                       {f"{k}_{dl_idx}": v for k, v in m.items()})
-        return out
+        def valid(model, epoch, logger):
+            t, v, _ = embed_dataset(model, val_loaders[0], input_res)
+            return evaluate_epic_mir(
+                t, v, *load_epic_annotations(annotations),
+                use_dual_softmax=use_dual_softmax)
+    else:  # charades
+        step = make_charades_train_step(
+            input_res=input_res,
+            temperature=float(loss_args.get("temperature", 0.05)))
+        val_loaders = [build.build_loader(dl_args, "test", tokenizer)]
+        classes = classes_file(config, dl_args)
+
+        def valid(model, epoch, logger):
+            return evaluate_charades(model, val_loaders[0],
+                                     load_charades_classes(classes),
+                                     tokenizer, input_res)
 
     dirs = config.make_run_dirs()
     if trainer_cfg.get("async_save"):

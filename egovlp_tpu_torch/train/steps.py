@@ -1,8 +1,10 @@
-"""The EgoClip training step.
+"""The training steps of EgoClip pretraining and the EPIC-Kitchens MIR and
+CharadesEgo fine-tunes, and the evaluation embedding steps.
 
-Counterpart of ``make_egoclip_train_step`` (``egovlp_tpu/train/steps.py``
-:89-188) on its ``global_sim='gather'``, ``n_micro=1`` path: scene
-negatives concatenated to the batch (:116-122), the train transform drawn
+EgoClip: counterpart of ``make_egoclip_train_step``
+(``egovlp_tpu/train/steps.py`` :89-188) on its ``global_sim='gather'``,
+``n_micro=1`` path: scene negatives concatenated to the batch
+(:116-122), the train transform drawn
 from the step's ``torch.Generator``, the dual-encoder forward, the cosine
 similarity matrix, EgoNCE with ``sim_matrix(verb_vec, verb_vec)`` /
 ``sim_matrix(noun_vec, noun_vec)`` masks (:177-183) or InfoNCE, backward
@@ -21,6 +23,16 @@ vectors are all-gathered (``core.collectives.all_gather_rows``) and put
 in global order before the similarity and the loss.  A world-N step so
 equals the one-process step on the concatenated batch, its gradient that
 of the global loss.
+
+EPIC-Kitchens MIR (``make_epic_train_step``, :195-221): the max-margin
+ranking loss on the cosine similarity matrix, or its adaptive form whose
+margins scale with each clip's caption relevancy (``relation``).
+CharadesEgo (``make_charades_train_step``, :228-246): InfoNCE.  Both
+draw the crop boxes and flips of the global batch and keep their rows,
+and under DDP all-gather ``t``, ``v`` (and ``relation``) in rank order,
+which is global order (these batches have no negatives), as the EgoClip
+step does.  The evaluation steps (:303-328) embed collated batches with
+the eval transform: text and video, video alone, text alone.
 """
 
 from __future__ import annotations
@@ -32,9 +44,14 @@ import torch
 
 from egovlp_tpu_torch.core.collectives import all_gather_rows
 from egovlp_tpu_torch.core.dist import process_shard
-from egovlp_tpu_torch.data.transforms import resized_crop_flip, sample_crop_boxes
+from egovlp_tpu_torch.data.transforms import (
+    eval_resize,
+    resized_crop_flip,
+    sample_crop_boxes,
+)
 from egovlp_tpu_torch.models.dual_encoder import sim_matrix
 from egovlp_tpu_torch.objectives.contrastive import egonce, info_nce
+from egovlp_tpu_torch.objectives.ranking import adaptive_max_margin, max_margin
 
 _NEG_KEYS = (("frames", "frames_neg"), ("text_ids", "text_neg_ids"),
              ("text_mask", "text_neg_mask"), ("noun_vec", "noun_vec_neg"),
@@ -58,6 +75,14 @@ def _global_rows(b: int, rank: int, world: int, negatives: bool,
     ``[pos_all; neg_all]``."""
     pos = torch.arange(rank * b, (rank + 1) * b, device=device)
     return torch.cat([pos, world * b + pos]) if negatives else pos
+
+
+def _update(optimizer, loss: torch.Tensor) -> torch.Tensor:
+    """Backward and the optimizer step; the loss, detached."""
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
 
 
 def make_egoclip_train_step(loss_type: str = "EgoNCE", input_res: int = 224,
@@ -116,9 +141,92 @@ def make_egoclip_train_step(loss_type: str = "EgoNCE", input_res: int = 224,
                           temperature, noun=noun, verb=verb)
         else:
             loss = info_nce(sim, temperature)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        return _update(optimizer, loss)
 
     return step
+
+
+def _finetune_forward(model, batch: Dict[str, torch.Tensor],
+                      generator: torch.Generator, input_res: int,
+                      gathered: tuple = ()) -> tuple:
+    """The train transform and forward of a batch without negatives:
+    ``(t, v, *batch[k] for k in gathered)``, all-gathered in global order
+    in a multi-process run."""
+    rank, world = process_shard()
+    frames = batch["frames"]
+    b = frames.shape[0]
+    boxes, flips = sample_crop_boxes(generator, world * b, frames.shape[2])
+    if world > 1:
+        rows = _global_rows(b, rank, world, False, boxes.device)
+        boxes, flips = boxes[rows], flips[rows]
+    video = resized_crop_flip(frames, boxes, flips, out_size=input_res)
+    model.train()
+    t, v = model(video, batch["text_ids"], batch["text_mask"],
+                 generator=generator)
+    return tuple(all_gather_rows(x) for x in
+                 (t, v, *(batch[k] for k in gathered)))
+
+
+def make_epic_train_step(loss_type: str = "MaxMarginRankingLoss",
+                         input_res: int = 224, margin: float = 0.2,
+                         fix_norm: bool = True) -> Callable:
+    """``step(model, optimizer, batch, generator) -> loss`` of the EPIC MIR
+    fine-tune; ``batch`` holds ``frames``, ``text_ids``, ``text_mask`` and,
+    for ``AdaptiveMaxMarginRankingLoss``, ``relation``."""
+    adaptive = loss_type == "AdaptiveMaxMarginRankingLoss"
+
+    def step(model, optimizer, batch: Dict[str, torch.Tensor],
+             generator: torch.Generator) -> torch.Tensor:
+        if adaptive:
+            t, v, relation = _finetune_forward(model, batch, generator,
+                                               input_res, ("relation",))
+            loss = adaptive_max_margin(sim_matrix(t, v), relation,
+                                       margin=margin, fix_norm=fix_norm)
+        else:
+            t, v = _finetune_forward(model, batch, generator, input_res)
+            loss = max_margin(sim_matrix(t, v), margin=margin,
+                              fix_norm=fix_norm)
+        return _update(optimizer, loss)
+
+    return step
+
+
+def make_charades_train_step(input_res: int = 224,
+                             temperature: float = 0.05) -> Callable:
+    """``step(model, optimizer, batch, generator) -> loss`` of the
+    CharadesEgo fine-tune: InfoNCE over the batch's clip-narration
+    pairs."""
+    def step(model, optimizer, batch: Dict[str, torch.Tensor],
+             generator: torch.Generator) -> torch.Tensor:
+        t, v = _finetune_forward(model, batch, generator, input_res)
+        return _update(optimizer, info_nce(sim_matrix(t, v), temperature))
+
+    return step
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.as_tensor(x).to(device)
+
+
+def embed_batch(model, frames, ids, mask, input_res: int = 224) -> tuple:
+    """``(text, video)`` embeddings, float32, of a collated batch under the
+    eval transform, on the model's device."""
+    device = next(model.parameters()).device
+    with torch.inference_mode():
+        video = eval_resize(_tensor(frames, device), out_size=input_res)
+        return model(video, _tensor(ids, device), _tensor(mask, device))
+
+
+def embed_video(model, frames, input_res: int = 224) -> torch.Tensor:
+    """Video embeddings, float32, under the eval transform."""
+    device = next(model.parameters()).device
+    with torch.inference_mode():
+        return model.encode_video(
+            eval_resize(_tensor(frames, device), out_size=input_res))
+
+
+def embed_text(model, ids, mask) -> torch.Tensor:
+    """Text embeddings, float32."""
+    device = next(model.parameters()).device
+    with torch.inference_mode():
+        return model.encode_text(_tensor(ids, device), _tensor(mask, device))

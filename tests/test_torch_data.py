@@ -84,13 +84,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         egovlp_tpu_torch.__path__, "egovlp_tpu_torch."))
     assert "egovlp_tpu_torch.train.trainer" in modules
-    # the EgoClip data subpackage and the entry points are walked too
+    # the data subpackage, the fine-tune modules and the entry points are
+    # walked too
     assert {"egovlp_tpu_torch.data.datasets",
             "egovlp_tpu_torch.data.datasets.egoclip",
+            "egovlp_tpu_torch.data.datasets.epic",
+            "egovlp_tpu_torch.data.datasets.charades",
+            "egovlp_tpu_torch.data.datasets.table",
+            "egovlp_tpu_torch.objectives.ranking",
+            "egovlp_tpu_torch.metrics.ndcg", "egovlp_tpu_torch.metrics.map",
+            "egovlp_tpu_torch.metrics.mir",
+            "egovlp_tpu_torch.metrics.charades",
+            "egovlp_tpu_torch.evals.epic_mir",
+            "egovlp_tpu_torch.evals.charades",
             "egovlp_tpu_torch.data.pipeline", "egovlp_tpu_torch.cli.train",
             "egovlp_tpu_torch.cli.eval"} <= set(modules)
-    # nor pandas, nor cv2: the EgoClip csv is read with the standard
-    # library, and cv2 is imported only where a video is decoded with it
+    # nor pandas, nor cv2: the EgoClip, EPIC and Charades csvs are read
+    # with the standard library, and cv2 is imported only where a video or
+    # a frame is decoded with it
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

@@ -331,7 +331,7 @@ def test_cli_train_eval_only_preset_writes_no_checkpoint(tiny_run,
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("task", "epic", "A11"), ("task", "charades", "A11"),
+    ("task", "oscc", "A11"), ("task", "pnr", "A11"),
     ("mesh", {"model": 2}, "A13"), ("mesh", {"sequence_parallel": True},
                                     "A13"),
     ("mesh", {"zero": 1}, "A13"), ("mesh", {"data": 2}, "world size is 1"),

@@ -11,9 +11,11 @@ only torch and the port (no jax), joins the process group with
   rank order; backward: the sum over ranks of the incoming gradient, this
   rank's rows) and ``psum_scalar`` / ``pmean_scalar``, and prints
   ``GATHER_OK``;
-* ``step``: one EgoClip step of the model and optimizer that ``DIR`` holds
-  (``model.json``, ``weights.pt``, ``batch.pt``: the global batch and its
-  crop boxes), this rank's half of the batch, the model wrapped in
+* ``step``: one training step of the model and optimizer that ``DIR``
+  holds (``model.json``: the widths, the schedule and the step, EgoClip
+  unless its ``step`` names the EPIC max-margin step and its loss;
+  ``weights.pt``; ``batch.pt``: the global batch and its crop boxes),
+  this rank's half of the batch, the model wrapped in
   ``DistributedDataParallel``; writes the loss, every parameter's gradient
   before the optimizer and the parameters after it to ``DIR/rank{r}.pt``;
 * ``eval``: ``gather_eval`` / ``gather_arrays`` / ``gather_objects`` of
@@ -100,8 +102,13 @@ def step(rank, world, out):
     opt.step = recorded_step
     ddp = data_parallel(model, torch.device("cpu"))
     assert isinstance(ddp, torch.nn.parallel.DistributedDataParallel)
-    loss = steps.make_egoclip_train_step(input_res=spec["res"])(
-        ddp, opt, local, torch.Generator())
+    if spec.get("step") == "epic":
+        step_fn = steps.make_epic_train_step(
+            loss_type=spec["loss_type"], input_res=spec["res"],
+            margin=spec["margin"])
+    else:
+        step_fn = steps.make_egoclip_train_step(input_res=spec["res"])
+    loss = step_fn(ddp, opt, local, torch.Generator())
     torch.save({"loss": loss, "grads": grads, "params": model.state_dict()},
                out / f"rank{rank}.pt")
 
