@@ -30,7 +30,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
    times (CUDA events, 20 runs, the launch path included), the kernel's
    own device time (``torch.profiler``, mean of 20 launches) and the bound
    at B 16, f 4, and for K1 and K2 (forward and backward, 3b) also at the
-   fine-tune shape B 16, f 16, whose outputs are held to the same limits;
+   fine-tune shapes B 16, f 16 (phase 9) and B 4, f 16 (phase 10), whose
+   outputs are held to the same limits;
 3b. backward kernels: K1-bwd and K2-bwd likewise, for each of dq, dk, dv,
    dcls_k and dcls_v (max abs error at float32 <= 1e-4; at bf16 <= 1e-2
    for K1-bwd, whose gradients are ~0.1 at these inputs, and <= 5e-2 for
@@ -183,6 +184,41 @@ Phases, each of which passes or raises (any failure exits non-zero):
    equal to it.  Every loss finite, every metric in [0, 100].  Prints the
    loop's median step end to step end and clips/s, the Loader wait, the
    peak memory, and each validation's items/s.
+10. Ego4D at full width, bf16, random time attention:
+   (a) OSCC and PNR at 16 frames: a synthetic hands-and-objects tree (24
+   parent clips of 8 s at 30 fps, 241 JPEGs each at 456 x 256 in
+   ``frames_jpeg`` / ``frames_jpeg_neg``; ``fho_oscc-pnr_{train,val}.json``
+   of 16 and 8 clips, half state changes with a keyframe inside the
+   clip).  For each task, first on its config's model and a batch of 4
+   clips from its train Loader: the first step's loss and video-side
+   gradients against the plain-attention model within phase 9's limits,
+   no gradient on the text tower, 4 AdamW steps on that batch at the
+   config's learning rate (printed: from random weights they overshoot)
+   and 4 at 1e-6 from the same weights, whose loss must fall, with the
+   text tower bit-equal after them (and for OSCC a
+   ``torch.profiler`` breakdown of 3 steps); then ``cli.train -c
+   configs/ft/{oscc,pnr}.json`` (2 epochs of 3 steps of 4 clips x 16
+   frames, 16 decode threads, strict loading, validation on the val split
+   after each epoch; counted: 12 / 12 / 11 / 12 launches of K1-fwd /
+   K2-fwd / K1-bwd / K2-bwd a step plus 12 K1-fwd and 12 K2-fwd a
+   validation batch of up to 4 clips, no K4 / K5), ``--resume`` training
+   epoch 3 alone, and ``cli.eval -c configs/eval/{oscc,pnr}.json`` on the
+   epoch-2 checkpoint with the default split, equal to the in-run
+   validation; accuracy in [0, 100], keyframe distance >= 0.  Prints the
+   loop's median step end to step end and clips/s, the Loader wait, the
+   peak memory and each validation's items/s.
+   (b) NLQ / MQ feature extraction at 4 frames: a 20-s mp4 at 30 fps and
+   456 x 256 written with OpenCV, ``nlq_val.json`` / ``moments_val.json``
+   with two clips of it and three queries (and an empty one).
+   ``cli.extract -c configs/eval/nlq.json`` in video mode (``.npy``;
+   counted: 12 K1-fwd and 12 K2-fwd a micro-batch of up to 4 windows, no
+   backward, no K4 / K5), each clip ``[n_windows, 256]`` and each window's
+   feature at cosine >= 0.999 against the plain-attention model on the
+   same windows; text mode, CLS ``[256]`` (``.npy``) and token level
+   ``[30, 256]`` (``.pt``), launching no video kernel; then
+   ``configs/eval/mq.json`` (``.pt``), equal in cosine to NLQ's features
+   of the same clips.  Prints windows a second, with and without the
+   decode.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object with one
 entry per kernel, and ``{"ok": true, "device": {...}}``.
@@ -249,6 +285,7 @@ HD = DIM // HEADS
 SCALE = HD ** -0.5
 TIMED = (16, 4, 196)  # B, f, n of the timed bf16 calls
 TIMED_F16 = (16, 16, 196)  # and of K1/K2 at the 16-frame fine-tune shape
+TIMED_F16_B4 = (4, 16, 196)  # and at the OSCC / PNR batch
 # NVIDIA H100 SXM data sheet: HBM bytes/s and dense bf16 tensor FLOP/s
 PEAK_BYTES, PEAK_BF16_FLOPS = 3.35e12, 989e12
 DEVICE = "cuda"
@@ -617,9 +654,11 @@ def phase_kernels(ca, smi: str) -> dict:
 
     rows = {name: time_kernel(name, *TIMED) for name in (*KERNELS,
                                                          *HS_KERNELS)}
-    # K1 and K2 at the 16-frame fine-tune shape (phase 9's main path)
+    # K1 and K2 at the 16-frame fine-tune shapes (phase 9's main path, and
+    # phase 10's OSCC / PNR batch of 4)
     for name in KERNELS:
         rows[name]["f16"] = time_kernel(name, *TIMED_F16)
+        rows[name]["f16_b4"] = time_kernel(name, *TIMED_F16_B4)
     B, f, n = TIMED
     # K5's scalar body, the route of the shapes the streaming body does not
     # take: at the timed shape with q one element off a 16-byte boundary
@@ -2130,6 +2169,483 @@ def phase_finetune(ca, smi: str, root: Path) -> dict:
     return counts
 
 
+# ---- phase 10: Ego4D OSCC / PNR at 16 frames, NLQ / MQ features ---------------
+
+SC_CLIPS = {"train": 16, "val": 8}  # OSCC clips a split, half state changes
+SC_W, SC_H = 456, 256               # Ego4D's ego4d_256 frames
+EM_SEC, EM_FPS = 20, 30             # the NLQ / MQ video: 20 s at 30 fps
+EM_CLIPS = [("clip_em0", 0.0, 12.0, ["where did i put the knife", "",
+                                     "who opened the door"]),
+            ("clip_em1", 6.5, 20.0, ["when did i take the cup"])]
+EM_VOCAB = FT_VOCAB + ["where", "did", "i", "who", "opened", "when", "knife"]
+EM_COS = 0.999  # each window's cosine against the plain-attention model
+SC_DESCENT_LR = 1e-6  # phase 10's falling-loss check (see sc_first_steps)
+
+
+def write_fho_tree(root: Path) -> list:
+    """Phase 10's synthetic Ego4D hands-and-objects tree: every clip an 8-s
+    parent clip at 30 fps, 241 JPEGs at 456 x 256 named by the parent
+    frame; ``fho_oscc-pnr_{train,val}.json`` as Ego4D ships them, half of
+    each split state changes with a keyframe inside the clip.  Returns the
+    clips' records."""
+    import cv2
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(11)
+    yy, xx = np.mgrid[0:SC_H, 0:SC_W]
+    clips, jobs = {}, []
+    for split, n in SC_CLIPS.items():
+        clips[split] = []
+        for i in range(n):
+            c = len(jobs)
+            state = i % 2 == 0
+            start_sec = 10.0 * c + 2.0
+            start_f = int(start_sec * 30)
+            pnr = start_f + int(rng.integers(20, 220)) if state else None
+            uid = f"{split}_{i:02d}"
+            d = root / ("frames_jpeg" if state else "frames_jpeg_neg") / uid
+            d.mkdir(parents=True)
+            jobs.append((d, c, start_f))
+            clips[split].append({
+                "unique_id": uid, "video_uid": f"v{c // 4}", "clip_id": c,
+                "state_change": state, "clip_pnr_frame": pnr and pnr - start_f,
+                "parent_pnr_frame": pnr, "clip_start_sec": 0.0,
+                "clip_end_sec": 8.0, "parent_start_sec": start_sec,
+                "parent_end_sec": start_sec + 8.0, "clip_start_frame": 0,
+                "clip_end_frame": 240, "parent_start_frame": start_f,
+                "parent_end_frame": start_f + 240})
+        (root / f"fho_oscc-pnr_{split}.json").write_text(json.dumps(
+            {"version": "1", "clips": clips[split]}))
+
+    def write(job):
+        d, c, start_f = job
+        for fn in range(start_f, start_f + 241):
+            img = np.stack([(xx // 2 + yy // 2 + 30 * c + fn) % 256,
+                            (yy + 2 * fn + 20 * c) % 256,
+                            (xx + 3 * fn) % 256], -1).astype(np.uint8)
+            check(cv2.imwrite(str(d / f"{fn}.jpeg"), img),
+                  f"cv2 cannot write a JPEG in {d}")
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+    (root / "vocab.txt").write_text("\n".join(FT_VOCAB))
+    return clips["train"] + clips["val"]
+
+
+def write_em_tree(root: Path) -> None:
+    """Phase 10's synthetic Ego4D episodic-memory tree: one 20-s mp4 at 30
+    fps and 456 x 256 written with OpenCV, and ``nlq_val.json`` /
+    ``moments_val.json`` with two clips of it and three queries (and an
+    empty one, which the dataset drops)."""
+    import cv2
+
+    root.mkdir(parents=True)
+    path = str(root / "vid_em.mp4")
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), EM_FPS,
+                         (SC_W, SC_H))
+    check(vw.isOpened(), f"cv2 cannot write {path}")
+    yy, xx = np.mgrid[0:SC_H, 0:SC_W]
+    for t in range(EM_SEC * EM_FPS):
+        vw.write(np.stack([(xx + 2 * t) % 256, (yy + 3 * t) % 256,
+                           (xx // 2 + yy // 2 + t) % 256],
+                          -1).astype(np.uint8))
+    vw.release()
+    anno = {"version": "1", "videos": [{"video_uid": "vid_em", "clips": [
+        {"clip_uid": uid, "video_start_sec": s0, "video_end_sec": s1,
+         "annotations": [{"language_queries": [{"query": q}
+                                               for q in queries]}]}
+        for uid, s0, s1, queries in EM_CLIPS]}]}
+    for name in ("nlq_val.json", "moments_val.json"):
+        (root / name).write_text(json.dumps(anno))
+    (root / "vocab.txt").write_text("\n".join(EM_VOCAB))
+
+
+def sc_first_steps(task: str, cfg_path: str, ov: list, smi: str) -> None:
+    """The first step of ``task`` at full width (batch 4 x 16 frames from
+    its train Loader) against the plain-attention model, the text tower
+    bit-equal after AdamW steps, and a loss falling over 4 steps on that
+    batch; a profile of 3 OSCC steps."""
+    import torch
+
+    from egovlp_tpu_torch import build
+    from egovlp_tpu_torch.io.config import load_config
+    from egovlp_tpu_torch.train import recipes
+    from egovlp_tpu_torch.train.state import make_optimizer
+    from egovlp_tpu_torch.train.steps import (
+        make_oscc_train_step,
+        make_pnr_train_step,
+    )
+
+    config = load_config(cfg_path)
+    config.override("arch.args.video_params.time_init", "random")
+    arch, bs = config["arch"], config["data_loader"]["args"]["batch_size"]
+    batches = ft_batches(cfg_path, ov, 3)
+    check(batches[0]["frames"].shape == (bs, 16, 256, 256, 3),
+          f"{task} batch {batches[0]['frames'].shape}")
+    fixed = recipes.to_device(batches[0], DEVICE)
+    make = make_oscc_train_step if task == "oscc" else make_pnr_train_step
+    step = make(input_res=224)
+    model, mcfg = build.build_model(arch, DEVICE)
+    build.init_params(model, seed=0)
+    heads = 2 if task == "oscc" else 16
+    check(model.video_model.dtype == torch.bfloat16 and mcfg.video.depth == 12
+          and mcfg.video.embed_dim == DIM and mcfg.video.num_frames == 16
+          and mcfg.projection_dim == heads,
+          f"not the full-width 16-frame {task} model: {mcfg}")
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def loss_and_grads(m):
+        loss = step(m, NoUpdate(m), fixed,
+                    torch.Generator(device=DEVICE).manual_seed(1)).item()
+        return loss, {k: p.grad.float() for k, p in m.named_parameters()
+                      if p.grad is not None}
+
+    torch.cuda.reset_peak_memory_stats()
+    loss_k, grads_k = loss_and_grads(model)
+    step_peak = torch.cuda.max_memory_allocated()
+    text = [k for k, _ in model.named_parameters()
+            if k.startswith(("text_model.", "txt_proj."))]
+    check(text and not set(text) & set(grads_k),
+          f"{task}: the text tower got a gradient")
+    xla_arch = copy.deepcopy(arch)
+    xla_arch["args"]["video_params"]["attention_impl"] = "xla"
+    ref, _ = build.build_model(xla_arch, DEVICE)
+    ref.load_state_dict(initial)
+    loss_x, grads_x = loss_and_grads(ref)
+    del ref
+    model.zero_grad(set_to_none=True)
+    names = sorted(grads_k)
+    check(names == sorted(grads_x), f"{task}: other parameters got gradients")
+    c_all = cosine(torch.cat([grads_k[k].flatten() for k in names]),
+                   torch.cat([grads_x[k].flatten() for k in names]))
+    c_qkv = min(cosine(grads_k[k], grads_x[k]) for k in names
+                if k.endswith(("attn.qkv.weight", "timeattn.qkv.weight"))
+                and k.startswith("video_model.blocks."))
+    print(f"oscc_pnr first {task} step ({bs} clips x 16 frames) vs plain "
+          f"attention: loss {loss_k:.6f} vs {loss_x:.6f} (tol "
+          f"{FT_LOSS_TOL}), grad cosine all {c_all:.6f} (>= {FT_GRAD_COS}), "
+          f"min qkv {c_qkv:.6f} (>= {FT_QKV_COS}); {len(names)} parameters "
+          f"with a gradient, {len(text)} text ones without; peak memory of "
+          f"the step {step_peak / 2**30:.2f} GiB [{smi}]", flush=True)
+    check(abs(loss_k - loss_x) <= FT_LOSS_TOL,
+          f"the {task} loss disagrees with the plain path")
+    check(c_all >= FT_GRAD_COS,
+          f"{task} gradients disagree with the plain path")
+    check(c_qkv >= FT_QKV_COS,
+          f"a block's qkv gradient disagrees with the plain path ({task})")
+    del grads_k, grads_x
+
+    opt_args = config["optimizer"]["args"]
+
+    def four_steps(lr):
+        model.load_state_dict(initial)
+        opt, _ = make_optimizer(
+            model, base_lr=lr,
+            milestones=tuple(config["trainer"]["lr_milestones"]),
+            steps_per_epoch=3, mu_dtype=opt_args.get("mu_dtype"))
+        return opt, [step(model, opt, fixed,
+                          torch.Generator(device=DEVICE).manual_seed(1))
+                     .item() for _ in range(4)]
+
+    # at the config's 3e-5 AdamW's sign-like first steps overshoot on
+    # random weights (the loss of a repeated batch rose and fell again,
+    # PERF.md section 6); at SC_DESCENT_LR the steps are small enough for
+    # the loss to descend
+    _, at_config = four_steps(float(opt_args["lr"]))
+    opt, same = four_steps(SC_DESCENT_LR)
+    moved = [k for k in text if not torch.equal(
+        model.get_parameter(k).detach(), initial[k])]
+    print(f"oscc_pnr 4 {task} steps on one batch: losses at lr "
+          f"{opt_args['lr']} {[round(v, 5) for v in at_config]}, at lr "
+          f"{SC_DESCENT_LR} {[round(v, 5) for v in same]}; text parameters "
+          f"moved: {len(moved)} of {len(text)}", flush=True)
+    check(all(np.isfinite(at_config + same)), f"a {task} loss is not finite")
+    check(same[-1] < same[0],
+          f"the {task} loss on a repeated batch did not fall")
+    check(not moved, f"{task} steps moved the text tower: {moved[:3]}")
+    if task == "oscc":
+        profile_steps(model, opt, step, batches, smi)
+    del model, opt, fixed, batches, initial
+    torch.cuda.empty_cache()
+
+
+def phase_oscc_pnr(ca, smi: str, root: Path) -> dict:
+    """Phase 10 (a) in the directory ``root``; returns the kernel launches
+    of the two counted ``cli.train`` runs (OSCC and PNR), summed."""
+    import torch
+
+    from egovlp_tpu_torch.cli import eval as cli_eval
+    from egovlp_tpu_torch.cli import train as cli_train
+    from egovlp_tpu_torch.train import recipes
+
+    t0 = time.perf_counter()
+    data = root / "fho"
+    clips = write_fho_tree(data)
+    print(f"oscc_pnr: Ego4D hands-and-objects tree ({len(clips)} clips x "
+          f"241 JPEGs at {SC_W} x {SC_H}) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    n_val = {"oscc": SC_CLIPS["val"], "pnr": SC_CLIPS["val"] // 2}
+    total = dict.fromkeys(ca.launches, 0)
+    ends, losses, vals = [], [], []
+    saved = {n: getattr(recipes, n) for n in (
+        "make_oscc_train_step", "make_pnr_train_step", "evaluate_oscc",
+        "evaluate_pnr")}
+    stack = contextlib.ExitStack()
+    waits = stack.enter_context(loader_waits())
+
+    def timed_eval(fn):
+        def run(*a, **kw):
+            t, w = time.perf_counter(), len(waits.setdefault("val", []))
+            out = fn(*a, **kw)
+            vals.append((out, time.perf_counter() - t,
+                         sum(waits["val"][w:])))
+            return out
+        return run
+
+    for name in ("make_oscc_train_step", "make_pnr_train_step"):
+        setattr(recipes, name, timed_step_maker(saved[name], ends, losses))
+    for name in ("evaluate_oscc", "evaluate_pnr"):
+        setattr(recipes, name, timed_eval(saved[name]))
+    try:
+        for task in ("oscc", "pnr"):
+            cfg = {k: str(ROOT / f"configs/{k}/{task}.json")
+                   for k in ("ft", "eval")}
+            ov = ft_overrides(data, root / "results", data / "vocab.txt")
+            sc_first_steps(task, cfg["ft"], ov, smi)
+            key = "accuracy" if task == "oscc" else "keyframe_distance"
+            # 12 samples an epoch: 3 steps (PNR's 8 state-change clips
+            # cycle, as the reference's inf_loop stretches an epoch)
+            steps_per_epoch = 3
+            # ---- the main path, counted ----------------------------------
+            ends.clear(), losses.clear(), vals.clear()
+            waits.clear()
+            torch.cuda.reset_peak_memory_stats()
+            ca.reset_launch_counts()
+            model, opt = cli_train.main([
+                "--config", cfg["ft"], *ov, "-o", "trainer.epochs=2",
+                "-o", "trainer.max_samples_per_epoch=12"])
+            torch.cuda.synchronize()
+            counts = dict(ca.launches)
+            # --------------------------------------------------------------
+            peak = torch.cuda.max_memory_allocated()
+            print(f"oscc_pnr cli.train {task} launches: {counts}",
+                  flush=True)
+            check(model.video_model.dtype == torch.bfloat16
+                  and model.cfg.video.num_frames == 16
+                  and model.cfg.video.depth == 12,
+                  "not the 16-frame full model")
+            n_steps, passes = len(ends), 2 * -(-n_val[task] // 4)
+            check(n_steps == 2 * steps_per_epoch and len(vals) == 2
+                  and opt.param_groups[0]["count"] == n_steps,
+                  f"{task}: {n_steps} steps, {len(vals)} validations")
+            for name, c in counts.items():
+                want = ((11 if name == "space_attention_bwd" else 12)
+                        * n_steps if name in KERNELS else 0) + (
+                    12 * passes if name in FWD else 0)
+                check(c == want, f"{name}: {c} launches in the {task} "
+                                 f"cli.train, expected {want}")
+                total[name] += c
+            values = [float(v) for v in losses]
+            print(f"oscc_pnr cli.train {task} losses: "
+                  f"{[round(v, 5) for v in values]}", flush=True)
+            check(all(np.isfinite(values)), f"a {task} loss is not finite")
+            for m, *_ in vals:
+                check(set(m) == {key} and m[key] >= 0.0 and (
+                    key != "accuracy" or m[key] <= 100.0),
+                      f"{task} metrics {m}")
+            models = root / "results" / "models"
+            run_name = "OSCC" if task == "oscc" else "PNR"
+            (run,) = (models / run_name).iterdir()
+            names = sorted(p.name for p in run.iterdir())
+            check({"checkpoint-epoch1.pth", "checkpoint-epoch2.pth"}
+                  <= set(names), f"{task} epoch checkpoints missing")
+            ckpt2, in_run = str(run / "checkpoint-epoch2.pth"), vals[1][0]
+            loop_ms = statistics.median(
+                a.elapsed_time(b) for a, b in zip(ends[1:], ends[2:]))
+            print(f"oscc_pnr cli.train {task} (4 clips x 16 frames a step, "
+                  f"decoded by the Loader): median step end to step end "
+                  f"over steps 2-{n_steps} {loop_ms:.2f} ms "
+                  f"({4 / loop_ms * 1e3:.2f} clips/s); median wait on the "
+                  f"Loader {statistics.median(waits['train']) * 1e3:.2f} ms "
+                  f"a batch; peak memory {peak / 2**30:.2f} GiB; run dir "
+                  f"{names} [{smi}]", flush=True)
+            for i, (m, sec, wait) in enumerate(vals):
+                print(f"oscc_pnr {task} validation {i + 1}: {n_val[task]} "
+                      f"clips in {sec:.3f} s ({n_val[task] / sec:.1f} "
+                      f"items/s, {wait:.3f} s waiting on the Loader): "
+                      f"{rounded(m)} [{smi}]", flush=True)
+            del model, opt
+            torch.cuda.empty_cache()
+
+            # ---- resume at epoch 3 ----------------------------------------
+            ends.clear(), vals.clear()
+            model, opt = cli_train.main([
+                "--config", cfg["ft"], *ov, "--resume", ckpt2,
+                "-o", "trainer.epochs=3",
+                "-o", "trainer.max_samples_per_epoch=12"])
+            (run3,) = [d for d in (models / run_name).iterdir() if d != run]
+            names3 = sorted(p.name for p in run3.iterdir())
+            print(f"oscc_pnr resume {task}: run dir {names3}, optimizer "
+                  f"count {opt.param_groups[0]['count']}", flush=True)
+            check(len(ends) == steps_per_epoch
+                  and opt.param_groups[0]["count"] == 3 * steps_per_epoch
+                  and "checkpoint-epoch3.pth" in names3
+                  and "checkpoint-epoch2.pth" not in names3,
+                  f"the resumed {task} run did not train epoch 3 alone")
+            del model, opt
+            torch.cuda.empty_cache()
+
+            # ---- cli.eval on the epoch-2 checkpoint, the default split ----
+            got = cli_eval.main(["--config", cfg["eval"], "--checkpoint",
+                                 ckpt2, *ov])
+            print(f"oscc_pnr cli.eval {task} on epoch 2 (default split): "
+                  f"{got}; in-run {in_run}; equal: {got == in_run}",
+                  flush=True)
+            check(got == in_run, f"{task} cli.eval disagrees with the "
+                                 "in-run validation")
+    finally:
+        for n, fn in saved.items():
+            setattr(recipes, n, fn)
+        stack.close()
+    return total
+
+
+def phase_extract(ca, smi: str, root: Path) -> dict:
+    """Phase 10 (b) in the directory ``root``; returns the kernel launches
+    of the counted video-mode ``cli.extract`` run."""
+    import torch
+
+    from egovlp_tpu_torch import build
+    from egovlp_tpu_torch.cli import extract as cli_extract
+    from egovlp_tpu_torch.cli.train import parse_overrides
+    from egovlp_tpu_torch.data.datasets.nlq_mq import FEATURE_FPS
+    from egovlp_tpu_torch.evals import features
+    from egovlp_tpu_torch.io.config import load_config
+    from egovlp_tpu_torch.train.recipes import _dl_args
+    from egovlp_tpu_torch.train.steps import embed_video
+
+    t0 = time.perf_counter()
+    data = root / "em"
+    write_em_tree(data)
+    print(f"extract: a {EM_SEC}-s mp4 at {EM_FPS} fps, {SC_W} x {SC_H}, and "
+          f"the NLQ / MQ val json written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cfg = {t: str(ROOT / f"configs/eval/{t}.json") for t in ("nlq", "mq")}
+    ov = ["-o", f"data_loader.args.data_dir={json.dumps(str(data))}",
+          "-o", f"data_loader.args.meta_dir={json.dumps(str(data))}",
+          "-o", f"arch.args.text_params.vocab="
+                f"{json.dumps(str(data / 'vocab.txt'))}",
+          "-o", 'arch.args.video_params.time_init="random"']
+    windows = {uid: int((s1 - s0) * FEATURE_FPS * 4) // 4
+               for uid, s0, s1, _ in EM_CLIPS}
+    micro = sum(-(-n // 4) for n in windows.values())
+    embeds = []
+
+    def timed_embed(model, frames, input_res=224):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = embed_video(model, frames, input_res)
+        torch.cuda.synchronize()
+        embeds.append((len(frames), time.perf_counter() - t))
+        return out
+
+    features.embed_video = timed_embed
+    try:
+        out = root / "features"
+        # ---- the main path, counted --------------------------------------
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli_extract.main(["-c", cfg["nlq"], "--out", str(out / "video"),
+                          *ov])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ca.launches)
+        # ------------------------------------------------------------------
+    finally:
+        features.embed_video = embed_video
+    n_win = sum(windows.values())
+    embed_s = sum(t for _, t in embeds)
+    print(f"extract cli.extract nlq video launches: {counts}; {len(embeds)} "
+          f"micro-batches of up to 4 windows x 4 frames", flush=True)
+    check(len(embeds) == micro, f"{len(embeds)} micro-batches, expected "
+                                f"{micro}")
+    for name, c in counts.items():
+        want = 12 * micro if name in FWD else 0
+        check(c == want, f"{name}: {c} launches in cli.extract, expected "
+                         f"{want}")
+    print(f"extract cli.extract nlq video: {n_win} windows of 4 frames in "
+          f"{wall:.3f} s ({n_win / wall:.1f} windows/s with decode and "
+          f"model set-up), embedding {embed_s:.3f} s ({n_win / embed_s:.1f} "
+          f"windows/s) [{smi}]", flush=True)
+    feats = {uid: np.load(out / "video" / f"{uid}.npy") for uid in windows}
+    for uid, n in windows.items():
+        check(feats[uid].shape == (n, 256)
+              and np.isfinite(feats[uid]).all(),
+              f"{uid} features {feats[uid].shape}")
+
+    # each window against the plain-attention model on the same windows
+    config = load_config(cfg["nlq"])
+    parse_overrides(config, ov[1::2])
+    arch = copy.deepcopy(config["arch"])
+    arch["args"]["video_params"]["attention_impl"] = "xla"
+    ref, mcfg = build.build_model(arch, DEVICE)
+    build.init_params(ref, seed=0)
+    check(ref.video_model.dtype == torch.bfloat16 and mcfg.video.depth == 12
+          and mcfg.video.embed_dim == DIM and mcfg.video.num_frames == 4
+          and mcfg.projection_dim == 256, f"not the full-width model: {mcfg}")
+    dataset = build.build_dataset(_dl_args(config), "val")
+    worst = 1.0
+    for i in range(len(dataset)):
+        item = dataset.get(i, np.random.default_rng(0))
+        uid, frames = item["meta"]["clip_uid"], item["frames"]
+        n = windows[uid] * 4
+        w = frames[:n].reshape(-1, 4, *frames.shape[1:])
+        want = np.concatenate([embed_video(ref, w[j:j + 4]).cpu().numpy()
+                               for j in range(0, len(w), 4)])
+        got = feats[uid]
+        cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1)
+                                     * np.linalg.norm(want, axis=1))
+        worst = min(worst, float(cos.min()))
+    del ref
+    torch.cuda.empty_cache()
+    print(f"extract windows vs plain attention: min cosine {worst:.6f} "
+          f"(>= {EM_COS})", flush=True)
+    check(worst >= EM_COS, "extracted features disagree with the plain path")
+
+    # text mode: CLS (.npy) and token level (.pt); then MQ
+    ca.reset_launch_counts()
+    cli_extract.main(["-c", cfg["nlq"], "--out", str(out / "text"),
+                      "--subsample", "text", *ov])
+    cli_extract.main(["-c", cfg["nlq"], "--out", str(out / "tokens"),
+                      "--subsample", "text", "--token_level",
+                      "--save_format", "pt", *ov])
+    text_counts = dict(ca.launches)
+    queries = [(uid, k) for uid, _, _, qs in EM_CLIPS
+               for k, _ in enumerate([q for q in qs if q])]
+    for uid, k in queries:
+        cls = np.load(out / "text" / f"{uid}_sentence_{k}.npy")
+        tok = torch.load(out / "tokens" / f"{uid}_sentence_{k}.pt",
+                         weights_only=True)
+        check(cls.shape == (256,) and tuple(tok.shape) == (30, 256)
+              and np.isfinite(cls).all() and bool(tok.isfinite().all()),
+              f"text features {cls.shape}, {tuple(tok.shape)}")
+    check(not any(text_counts.values()),
+          f"text extraction launched video kernels: {text_counts}")
+    cli_extract.main(["-c", cfg["mq"], "--out", str(out / "mq"),
+                      "--save_format", "pt", *ov])
+    mq_cos = 1.0
+    for uid, n in windows.items():
+        mq = torch.load(out / "mq" / f"{uid}.pt", weights_only=True).numpy()
+        check(mq.shape == (n, 256), f"MQ {uid} features {mq.shape}")
+        a = feats[uid]
+        mq_cos = min(mq_cos, float(((a * mq).sum(1) / (
+            np.linalg.norm(a, axis=1) * np.linalg.norm(mq, axis=1))).min()))
+    print(f"extract text: {len(queries)} queries, CLS [256] and tokens "
+          f"[30, 256]; MQ video features vs NLQ's on the same clips: min "
+          f"cosine {mq_cos:.6f}", flush=True)
+    check(mq_cos >= 0.9999, "MQ features disagree with NLQ's")
+    return counts
+
 
 def main() -> None:
     import torch
@@ -2200,6 +2716,10 @@ def main() -> None:
         ddp_counts = phase_ddp(ca, smi, ref, Path(tree.name) / "data")
         torch.cuda.empty_cache()
         ft_counts = phase_finetune(ca, smi, Path(tree.name) / "finetune")
+        torch.cuda.empty_cache()
+        sc_counts = phase_oscc_pnr(ca, smi, Path(tree.name) / "ego4d")
+        torch.cuda.empty_cache()
+        em_counts = phase_extract(ca, smi, Path(tree.name) / "ego4d")
     finally:
         tree.cleanup()
 
@@ -2215,14 +2735,18 @@ def main() -> None:
                                      "training": train_counts[name],
                                      "train_cli": cli_counts[name],
                                      "ddp_world1": ddp_counts[name],
-                                     "finetune16": ft_counts[name]},
+                                     "finetune16": ft_counts[name],
+                                     "oscc_pnr16": sc_counts[name],
+                                     "extract": em_counts[name]},
                 **rows[name]}
                for name, replaces in KERNELS.items()]
     kernels += [{"name": name, "route": "cuda", **sources(name),
                  "replaces": replaces, "launches": hs_counts[name],
                  "launches_by_path": {"head_split_op": hs_counts[name],
                                       "train_cli": cli_counts[name],
-                                      "finetune16": ft_counts[name]},
+                                      "finetune16": ft_counts[name],
+                                      "oscc_pnr16": sc_counts[name],
+                                      "extract": em_counts[name]},
                  **rows[name]}
                 for name, replaces in HS_KERNELS.items()]
     print(smi)

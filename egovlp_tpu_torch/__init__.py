@@ -10,7 +10,10 @@ and EgoClip pretraining with EgoMCQ validation on the full dual encoder:
 ``cli/train.py`` -> ``train/recipes.run_task`` -> the EgoClip / EgoMCQ
 datasets (``data/datasets``) and the threaded ``data/pipeline.Loader`` ->
 the EgoNCE step, AdamW with step-LR, the ``Trainer`` and torch-pickle
-checkpoints, and ``cli/eval.py`` (EgoMCQ).  One process drives one GPU.
+checkpoints; the EPIC-Kitchens MIR, CharadesEgo and Ego4D OSCC / PNR
+fine-tunes the same way; ``cli/eval.py`` (EgoMCQ, EPIC, Charades, OSCC,
+PNR) and ``cli/extract.py`` (Ego4D NLQ / MQ features).  One process
+drives one GPU, under ``torch.distributed`` one process a GPU.
 The divided space- and time-attention of every video block runs forward
 and backward through hand-written CUDA kernels (``kernels/csrc``) on a
 CUDA device and through their plain PyTorch twins on the CPU.

@@ -8,15 +8,17 @@
 Counterpart of ``egovlp_tpu/cli/eval.py``: the metrics of the config's
 model on its task, printed as JSON.  ``egoclip`` / ``egomcq``: EgoMCQ
 accuracies; ``epic``: nDCG and mAP, with the dual-softmax rescoring when
-``--dual_softmax`` is given; ``charades``: the 157-class mAP.  The split
-is ``--split``, else ``val`` for egoclip/egomcq and ``test`` for epic and
-charades.  ``--checkpoint`` takes a torch pickle (a published
-``egovlp.pth`` or the port's own ``checkpoint-epoch{n}.pth``, whose
-payload holds ``state_dict``), loaded strictly.  The device is ``cuda``
+``--dual_softmax`` is given; ``charades``: the 157-class mAP; ``oscc``:
+the state-change accuracy; ``pnr``: the keyframe distance in seconds.
+The split is ``--split``, else ``val`` for egoclip, egomcq, oscc and pnr
+and ``test`` for epic and charades, as the JAX CLI has it.
+``--checkpoint`` takes a torch pickle (a published ``egovlp.pth`` or the
+port's own ``checkpoint-epoch{n}.pth``, whose payload holds
+``state_dict``), loaded strictly.  The device is ``cuda``
 unless ``--device cpu`` is given.  ``--multihost`` (under torchrun) joins
 the process group first: each rank evaluates its shard and every rank
-gets the whole dataset's metrics; rank 0 prints them.  The other tasks
-are still to port (``ROADMAP.md``, Queue A, A11).
+gets the whole dataset's metrics; rank 0 prints them.  ``nlq`` / ``mq``
+have no metric here and raise, naming ``cli.extract``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from egovlp_tpu_torch.evals.charades import (
 )
 from egovlp_tpu_torch.evals.egomcq import evaluate_egomcq
 from egovlp_tpu_torch.evals.epic_mir import embed_dataset, evaluate_epic_mir
+from egovlp_tpu_torch.evals.oscc_pnr import evaluate_oscc, evaluate_pnr
 from egovlp_tpu_torch.io.config import load_config
 from egovlp_tpu_torch.io.logging import setup_logging
 from egovlp_tpu_torch.metrics.mir import load_epic_annotations
@@ -46,7 +49,8 @@ from egovlp_tpu_torch.train.recipes import (
     resolve_device,
 )
 
-TASKS = ("egoclip", "egomcq", "epic", "charades")
+TASKS = ("egoclip", "egomcq", "epic", "charades", "oscc", "pnr")
+VAL_SPLIT_TASKS = ("egoclip", "egomcq", "oscc", "pnr")
 
 
 def main(argv=None):
@@ -57,8 +61,8 @@ def main(argv=None):
     ap.add_argument("--dual_softmax", action="store_true",
                     help="epic: dual-softmax rescoring of raw dot products")
     ap.add_argument("--split", default=None,
-                    help="default: val (egoclip, egomcq), test (epic, "
-                         "charades)")
+                    help="default: val (egoclip, egomcq, oscc, pnr), test "
+                         "(epic, charades)")
     ap.add_argument("--override", "-o", action="append", default=[],
                     metavar="dotted.path=value",
                     help="arbitrary config override (JSON-parsed value)")
@@ -73,11 +77,13 @@ def main(argv=None):
     config = load_config(args.config)
     parse_overrides(config, args.override)
     task = infer_task(config)
-    if task not in TASKS:
+    if task in ("nlq", "mq"):
         raise NotImplementedError(
-            f"task {task!r} is not ported yet (ROADMAP.md, Queue A, A11)")
-    split = args.split or ("val" if task in ("egoclip", "egomcq")
-                           else "test")
+            f"task {task!r} has no evaluation: extract its features with "
+            "`python -m egovlp_tpu_torch.cli.extract`")
+    if task not in TASKS:
+        raise NotImplementedError(f"unknown task {task!r}")
+    split = args.split or ("val" if task in VAL_SPLIT_TASKS else "test")
     device = resolve_device(args.device)
     if args.checkpoint:
         if not os.path.exists(args.checkpoint):
@@ -102,6 +108,9 @@ def main(argv=None):
                 t, v, *load_epic_annotations(
                     dl_args.get("meta_dir") or dl_args["data_dir"]),
                 use_dual_softmax=args.dual_softmax)
+        elif task in ("oscc", "pnr"):
+            evaluate = evaluate_oscc if task == "oscc" else evaluate_pnr
+            metrics = evaluate(model, loader, input_res)
         elif task == "charades":
             metrics = evaluate_charades(
                 model, loader,

@@ -2,20 +2,23 @@
 
 Counterpart of ``egovlp_tpu/data/datasets/__init__.py``, under the names
 of the reference's loader factory so that configs carry over.  Ported so
-far: EgoClip pretraining, EgoMCQ evaluation, and the EPIC-Kitchens MIR
-and CharadesEgo fine-tunes.  The other datasets the JAX registry names
-raise until they are ported (``ROADMAP.md``, Queue A, A11).
+far: EgoClip pretraining, EgoMCQ evaluation, the EPIC-Kitchens MIR,
+CharadesEgo and Ego4D OSCC / PNR fine-tunes, and the Ego4D NLQ / MQ
+feature extraction.  The legacy Frozen-in-Time datasets the JAX registry
+names raise until they are ported (``ROADMAP.md``, Queue A, A11).
 """
 
 from egovlp_tpu_torch.data.datasets.base import DatasetConfig, TextVideoDataset
 from egovlp_tpu_torch.data.datasets.charades import CharadesEgoDataset
 from egovlp_tpu_torch.data.datasets.egoclip import EgoClipDataset, EgoMCQDataset
 from egovlp_tpu_torch.data.datasets.epic import EpicMIRDataset
+from egovlp_tpu_torch.data.datasets.nlq_mq import Ego4DMQDataset, Ego4DNLQDataset
+from egovlp_tpu_torch.data.datasets.oscc_pnr import (
+    Ego4DOSCCDataset,
+    Ego4DPNRDataset,
+)
 
-NOT_PORTED = frozenset({
-    "Ego4D_OSCC", "Ego4D_PNR", "Ego4D_NLQ", "Ego4D_MQ", "WebVid",
-    "ConceptualCaptions3M",
-})
+NOT_PORTED = frozenset({"WebVid", "ConceptualCaptions3M"})
 
 
 def _egoclip_dispatch(cfg: DatasetConfig):
@@ -33,6 +36,10 @@ def dataset_factory(name: str):
         "MultiInstanceRetrieval": EpicMIRDataset,
         "EpicKitchens_MIR": EpicMIRDataset,
         "CharadesEgo": CharadesEgoDataset,
+        "Ego4D_OSCC": Ego4DOSCCDataset,
+        "Ego4D_PNR": Ego4DPNRDataset,
+        "Ego4D_NLQ": Ego4DNLQDataset,
+        "Ego4D_MQ": Ego4DMQDataset,
     }
     if name in NOT_PORTED:
         raise NotImplementedError(
@@ -44,4 +51,5 @@ def dataset_factory(name: str):
 
 __all__ = ["DatasetConfig", "TextVideoDataset", "EgoClipDataset",
            "EgoMCQDataset", "EpicMIRDataset", "CharadesEgoDataset",
-           "dataset_factory"]
+           "Ego4DOSCCDataset", "Ego4DPNRDataset", "Ego4DNLQDataset",
+           "Ego4DMQDataset", "dataset_factory"]

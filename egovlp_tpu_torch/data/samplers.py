@@ -1,9 +1,9 @@
 """Frame-index samplers (pure functions).
 
-The port's own copy of ``sample_frames`` and ``sample_frames_start_end``
-from ``egovlp_tpu/data/samplers.py``.  The clip is divided into
-``num_frames`` equal intervals; ``'rand'`` picks a random index inside
-each, ``'uniform'`` the midpoint.  Quirks kept for parity with the
+The port's own copy of ``sample_frames``, ``sample_frames_start_end``
+and ``sample_frames_clips`` from ``egovlp_tpu/data/samplers.py``.  The
+clip is divided into ``num_frames`` equal intervals; ``'rand'`` picks a
+random index inside each, ``'uniform'`` the midpoint.  Quirks kept for parity with the
 reference:
 
 * the random pick excludes the last index of each interval;
@@ -61,3 +61,13 @@ def sample_frames_start_end(num_frames: int, start: int, end: int,
     iv = _intervals(start, end, acc)
     return [_pick(iv[i], iv[i + 1] - 1, sample, fix_start, rng)
             for i in range(acc)]
+
+
+def sample_frames_clips(start: int, end: int, vlen: int,
+                        acc_samples: int) -> List[int]:
+    """The midpoints of ``acc_samples`` equal intervals of ``[start,
+    end]`` clamped to the video (the NLQ/MQ dense windows)."""
+    start = max(0, start)
+    end = min(vlen, end)
+    iv = _intervals(start, end, int(acc_samples))
+    return [(iv[i] + iv[i + 1] - 1) // 2 for i in range(int(acc_samples))]

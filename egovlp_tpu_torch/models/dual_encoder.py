@@ -67,10 +67,16 @@ class DualEncoder(nn.Module):
         """Token-level projected embeddings ``[B, S, projection_dim]``."""
         return self.txt_proj(self.text_model(input_ids, attention_mask)).float()
 
-    def forward(self, video, input_ids, attention_mask,
+    def forward(self, video, input_ids=None, attention_mask=None,
                 generator: "torch.Generator | None" = None):
         """The training forward (``DualEncoder.__call__`` of the JAX
-        package, :90-96): ``(text_embeddings, video_embeddings)``."""
+        package, :90-96): ``(text_embeddings, video_embeddings)``.  With
+        no ``input_ids`` it is the video-only forward of the OSCC / PNR
+        steps and returns the video embeddings alone: a step calls it
+        through ``DistributedDataParallel`` so that the video tower's
+        gradients are all-reduced."""
+        if input_ids is None:
+            return self.encode_video(video, generator)
         return (self.encode_text(input_ids, attention_mask),
                 self.encode_video(video, generator))
 

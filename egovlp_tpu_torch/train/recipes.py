@@ -20,7 +20,9 @@ Counterpart of ``egovlp_tpu/train/recipes.py`` for the ``egoclip``,
   nDCG / mAP on the ``test`` split, dual-softmax when the config's
   ``dual_softmax`` is set.  ``charades``: the InfoNCE step and the
   157-class mAP on the ``test`` split against the config's
-  ``charades_classes`` file.  It runs on
+  ``charades_classes`` file.  ``oscc`` / ``pnr``: the video-only cross
+  entropy steps and the accuracy / keyframe distance on the ``val``
+  split.  It runs on
   ``cuda`` unless the caller asks for ``cpu``: one process on one device,
   or one process per GPU under ``torch.distributed`` (``core.dist``).
   There every rank builds and loads the model from the same seed and
@@ -29,9 +31,10 @@ Counterpart of ``egovlp_tpu/train/recipes.py`` for the ``egoclip``,
   and validates the unwrapped model on its shard of the val loader.  The
   config's batch size is the process's (the reference's per-GPU
   convention): the global batch is world size times it, and an epoch is
-  the per-rank loader's length.  Tensor, sequence and ZeRO parallelism and
-  the other tasks raise (``ROADMAP.md``, Queue A), as does a fine-tune
-  config with a ranking visualizer (``visualizer.type``; A12).
+  the per-rank loader's length.  Tensor, sequence and ZeRO parallelism
+  raise (``ROADMAP.md``, Queue A), as does a fine-tune config with a
+  ranking visualizer (``visualizer.type``; A12); ``nlq`` / ``mq`` train
+  nothing and raise, naming ``cli.extract``.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from egovlp_tpu_torch.evals.charades import (
 )
 from egovlp_tpu_torch.evals.egomcq import evaluate_egomcq
 from egovlp_tpu_torch.evals.epic_mir import embed_dataset, evaluate_epic_mir
+from egovlp_tpu_torch.evals.oscc_pnr import evaluate_oscc, evaluate_pnr
 from egovlp_tpu_torch.io.config import Config
 from egovlp_tpu_torch.io.logging import setup_logging
 from egovlp_tpu_torch.metrics.mir import load_epic_annotations
@@ -63,6 +67,8 @@ from egovlp_tpu_torch.train.steps import (
     make_charades_train_step,
     make_egoclip_train_step,
     make_epic_train_step,
+    make_oscc_train_step,
+    make_pnr_train_step,
     numeric_batch,
 )
 from egovlp_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -143,7 +149,9 @@ def _all_dl_args(config):
     return [dict(dl.get("args", dl))]
 
 
-PORTED_TASKS = ("egoclip", "epic", "charades")
+PORTED_TASKS = ("egoclip", "epic", "charades", "oscc", "pnr")
+# the tasks whose step runs the video tower alone
+VIDEO_ONLY_TASKS = ("oscc", "pnr")
 
 
 def classes_file(config, dl_args: Dict[str, Any]) -> str:
@@ -159,6 +167,10 @@ def check_ported(config) -> None:
     port does not run yet, and ``ValueError`` on a data-parallel size
     (``mesh.data``, ``n_devices``) other than the world size."""
     task = infer_task(config)
+    if task in ("nlq", "mq"):
+        raise NotImplementedError(
+            f"task {task!r} trains nothing: its features come from "
+            "`python -m egovlp_tpu_torch.cli.extract`")
     if task not in PORTED_TASKS:
         raise NotImplementedError(
             f"task {task!r} is not ported yet (ROADMAP.md, Queue A, A11)")
@@ -204,16 +216,21 @@ def resolve_device(device: "torch.device | str") -> torch.device:
     return device
 
 
-def data_parallel(model: torch.nn.Module, device: torch.device
-                  ) -> torch.nn.Module:
+def data_parallel(model: torch.nn.Module, device: torch.device,
+                  video_only: bool = False) -> torch.nn.Module:
     """``model`` wrapped in ``DistributedDataParallel`` when a process group
-    exists (at world 1 too, as ``torchrun --nproc_per_node=1`` runs it;
-    every parameter gets a gradient in each task's step, so no
-    unused-parameter search), ``model`` itself otherwise."""
+    exists (at world 1 too, as ``torchrun --nproc_per_node=1`` runs it),
+    ``model`` itself otherwise.  The contrastive steps give every
+    parameter a gradient, so the wrapper looks for no unused parameter.
+    The video-only steps (``video_only``: OSCC, PNR) call the wrapper
+    without text, so the text tower gets no gradient: the wrapper then
+    searches the graph for unused parameters each step, and leaves their
+    gradients ``None`` (AdamW skips them)."""
     if not in_process_group():
         return model
     return DistributedDataParallel(
-        model, device_ids=[device.index] if device.type == "cuda" else None)
+        model, device_ids=[device.index] if device.type == "cuda" else None,
+        find_unused_parameters=video_only)
 
 
 def run_task(config, resume: Optional[str] = None,
@@ -307,6 +324,14 @@ def run_task(config, resume: Optional[str] = None,
             return evaluate_epic_mir(
                 t, v, *load_epic_annotations(annotations),
                 use_dual_softmax=use_dual_softmax)
+    elif task in VIDEO_ONLY_TASKS:
+        step = (make_oscc_train_step if task == "oscc"
+                else make_pnr_train_step)(input_res=input_res)
+        val_loaders = [build.build_loader(dl_args, "val", tokenizer)]
+        evaluate = evaluate_oscc if task == "oscc" else evaluate_pnr
+
+        def valid(model, epoch, logger):
+            return evaluate(model, val_loaders[0], input_res)
     else:  # charades
         step = make_charades_train_step(
             input_res=input_res,
@@ -341,7 +366,9 @@ def run_task(config, resume: Optional[str] = None,
         logger.info("resumed from %s (epoch %d) at epoch %d", resume,
                     payload["epoch"], trainer.cfg.start_epoch)
     try:
-        trainer.train(data_parallel(model, device), optimizer)
+        trainer.train(data_parallel(model, device,
+                                    video_only=task in VIDEO_ONLY_TASKS),
+                      optimizer)
     finally:
         for l in train_loaders + val_loaders:
             l.close()

@@ -1,5 +1,6 @@
-"""The training steps of EgoClip pretraining and the EPIC-Kitchens MIR and
-CharadesEgo fine-tunes, and the evaluation embedding steps.
+"""The training steps of EgoClip pretraining and the EPIC-Kitchens MIR,
+CharadesEgo and Ego4D OSCC / PNR fine-tunes, and the evaluation
+embedding steps.
 
 EgoClip: counterpart of ``make_egoclip_train_step``
 (``egovlp_tpu/train/steps.py`` :89-188) on its ``global_sim='gather'``,
@@ -31,8 +32,14 @@ CharadesEgo (``make_charades_train_step``, :228-246): InfoNCE.  Both
 draw the crop boxes and flips of the global batch and keep their rows,
 and under DDP all-gather ``t``, ``v`` (and ``relation``) in rank order,
 which is global order (these batches have no negatives), as the EgoClip
-step does.  The evaluation steps (:303-328) embed collated batches with
-the eval transform: text and video, video alone, text alone.
+step does.  Ego4D OSCC and PNR (``make_oscc_train_step`` /
+``make_pnr_train_step``, :251-296): video only, the cross entropy of the
+class head (2 logits; 16, one a sampled frame, masked by the
+state-change flag); they draw the global batch's crop boxes too and
+all-gather the logits, targets and mask, so the loss is the JAX step's
+global-batch loss at any world size.  The evaluation steps (:303-328)
+embed collated batches with the eval transform: text and video, video
+alone, text alone.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from egovlp_tpu_torch.data.transforms import (
     sample_crop_boxes,
 )
 from egovlp_tpu_torch.models.dual_encoder import sim_matrix
+from egovlp_tpu_torch.objectives.classification import cross_entropy, nll
 from egovlp_tpu_torch.objectives.contrastive import egonce, info_nce
 from egovlp_tpu_torch.objectives.ranking import adaptive_max_margin, max_margin
 
@@ -146,25 +154,45 @@ def make_egoclip_train_step(loss_type: str = "EgoNCE", input_res: int = 224,
     return step
 
 
+def _train_video(model, frames: torch.Tensor, generator: torch.Generator,
+                 input_res: int) -> torch.Tensor:
+    """The train transform of a batch without negatives, its crop boxes
+    and flips drawn for the global batch and this rank's rows kept; puts
+    ``model`` in training mode."""
+    rank, world = process_shard()
+    b = frames.shape[0]
+    boxes, flips = sample_crop_boxes(generator, world * b, frames.shape[2])
+    if world > 1:
+        rows = _global_rows(b, rank, world, False, boxes.device)
+        boxes, flips = boxes[rows], flips[rows]
+    model.train()
+    return resized_crop_flip(frames, boxes, flips, out_size=input_res)
+
+
 def _finetune_forward(model, batch: Dict[str, torch.Tensor],
                       generator: torch.Generator, input_res: int,
                       gathered: tuple = ()) -> tuple:
     """The train transform and forward of a batch without negatives:
     ``(t, v, *batch[k] for k in gathered)``, all-gathered in global order
     in a multi-process run."""
-    rank, world = process_shard()
-    frames = batch["frames"]
-    b = frames.shape[0]
-    boxes, flips = sample_crop_boxes(generator, world * b, frames.shape[2])
-    if world > 1:
-        rows = _global_rows(b, rank, world, False, boxes.device)
-        boxes, flips = boxes[rows], flips[rows]
-    video = resized_crop_flip(frames, boxes, flips, out_size=input_res)
-    model.train()
+    video = _train_video(model, batch["frames"], generator, input_res)
     t, v = model(video, batch["text_ids"], batch["text_mask"],
                  generator=generator)
     return tuple(all_gather_rows(x) for x in
                  (t, v, *(batch[k] for k in gathered)))
+
+
+def _video_only_forward(model, batch: Dict[str, torch.Tensor],
+                        generator: torch.Generator, input_res: int,
+                        gathered: tuple = ()) -> tuple:
+    """``_finetune_forward`` of the video-only tasks: ``(v, *batch[k] for
+    k in gathered)``.  The text tower takes no part, so under DDP the
+    wrapper must look for unused parameters
+    (``recipes.data_parallel``)."""
+    video = _train_video(model, batch["frames"], generator, input_res)
+    v = model(video, generator=generator)
+    return tuple(all_gather_rows(x) for x in
+                 (v, *(batch[k] for k in gathered)))
 
 
 def make_epic_train_step(loss_type: str = "MaxMarginRankingLoss",
@@ -200,6 +228,36 @@ def make_charades_train_step(input_res: int = 224,
              generator: torch.Generator) -> torch.Tensor:
         t, v = _finetune_forward(model, batch, generator, input_res)
         return _update(optimizer, info_nce(sim_matrix(t, v), temperature))
+
+    return step
+
+
+def make_oscc_train_step(input_res: int = 224) -> Callable:
+    """``step(model, optimizer, batch, generator) -> loss`` of the Ego4D
+    OSCC fine-tune: the cross entropy of the 2-logit video head against
+    ``state``, over the global batch."""
+    def step(model, optimizer, batch: Dict[str, torch.Tensor],
+             generator: torch.Generator) -> torch.Tensor:
+        logits, state = _video_only_forward(model, batch, generator,
+                                            input_res, ("state",))
+        return _update(optimizer, cross_entropy(logits, state))
+
+    return step
+
+
+def make_pnr_train_step(input_res: int = 224) -> Callable:
+    """``step(model, optimizer, batch, generator) -> loss`` of the Ego4D
+    PNR fine-tune: the cross entropy of the 16-logit video head against
+    ``argmax(labels)``, masked by the state-change flag, ``sum(nll *
+    mask) / max(sum(mask), 1)`` over the global batch."""
+    def step(model, optimizer, batch: Dict[str, torch.Tensor],
+             generator: torch.Generator) -> torch.Tensor:
+        logits, labels, state = _video_only_forward(
+            model, batch, generator, input_res, ("labels", "state"))
+        mask = state.float()
+        loss = (nll(logits, labels.argmax(dim=1)) * mask).sum() / \
+            mask.sum().clamp_min(1.0)
+        return _update(optimizer, loss)
 
     return step
 

@@ -97,11 +97,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "egovlp_tpu_torch.metrics.charades",
             "egovlp_tpu_torch.evals.epic_mir",
             "egovlp_tpu_torch.evals.charades",
+            "egovlp_tpu_torch.data.datasets.oscc_pnr",
+            "egovlp_tpu_torch.data.datasets.nlq_mq",
+            "egovlp_tpu_torch.objectives.classification",
+            "egovlp_tpu_torch.metrics.oscc_pnr",
+            "egovlp_tpu_torch.evals.oscc_pnr",
+            "egovlp_tpu_torch.evals.features",
             "egovlp_tpu_torch.data.pipeline", "egovlp_tpu_torch.cli.train",
-            "egovlp_tpu_torch.cli.eval"} <= set(modules)
+            "egovlp_tpu_torch.cli.eval",
+            "egovlp_tpu_torch.cli.extract"} <= set(modules)
     # nor pandas, nor cv2: the EgoClip, EPIC and Charades csvs are read
     # with the standard library, and cv2 is imported only where a video or
-    # a frame is decoded with it
+    # a frame (the EPIC and Ego4D JPEGs too) is decoded with it
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

@@ -207,12 +207,13 @@ def test_dataset_factory_dispatch_matches_jax(egoclip_root):  # noqa: F811
         assert type(got) is cls and type(want).__name__ == cls.__name__
     assert dataset_factory("EgoClip") is EgoClipDataset
     assert dataset_factory("EgoMCQ") is EgoMCQDataset
-    for name in ("MultiInstanceRetrieval", "EpicKitchens_MIR", "CharadesEgo"):
-        jax_dataset_factory(name)  # ported: see tests/test_torch_ft_data.py
+    # ported: see tests/test_torch_ft_data.py, test_torch_oscc_pnr.py and
+    # test_torch_features.py
+    for name in ("MultiInstanceRetrieval", "EpicKitchens_MIR", "CharadesEgo",
+                 "Ego4D_OSCC", "Ego4D_PNR", "Ego4D_NLQ", "Ego4D_MQ"):
         assert dataset_factory(name).__name__ == \
             jax_dataset_factory(name).__name__
-    for name in ("Ego4D_OSCC", "Ego4D_PNR", "Ego4D_NLQ", "Ego4D_MQ",
-                 "WebVid", "ConceptualCaptions3M"):
+    for name in ("WebVid", "ConceptualCaptions3M"):
         jax_dataset_factory(name)  # a name the JAX registry has
         with pytest.raises(NotImplementedError, match="ROADMAP.md.*A11"):
             dataset_factory(name)

@@ -12,12 +12,16 @@ only torch and the port (no jax), joins the process group with
   rank's rows) and ``psum_scalar`` / ``pmean_scalar``, and prints
   ``GATHER_OK``;
 * ``step``: one training step of the model and optimizer that ``DIR``
-  holds (``model.json``: the widths, the schedule and the step, EgoClip
-  unless its ``step`` names the EPIC max-margin step and its loss;
-  ``weights.pt``; ``batch.pt``: the global batch and its crop boxes),
-  this rank's half of the batch, the model wrapped in
-  ``DistributedDataParallel``; writes the loss, every parameter's gradient
-  before the optimizer and the parameters after it to ``DIR/rank{r}.pt``;
+  holds (``model.json``: the widths, the head's width ``proj`` (8 unless
+  given), the schedule and the step, EgoClip unless its ``step`` names
+  the EPIC max-margin step and its loss, or the video-only ``oscc`` /
+  ``pnr`` step; ``weights.pt``; ``batch.pt``: the global batch and its
+  crop boxes), this rank's half of the batch, the model wrapped in
+  ``DistributedDataParallel`` (``recipes.data_parallel``, video-only for
+  oscc / pnr); writes the loss, every parameter's gradient before the
+  optimizer (None where it got none) and the parameters after it to
+  ``DIR/rank{r}.pt``; a video-only step's rank 0 also writes the trained
+  model's checkpoint under ``DIR/ckpt`` through ``CheckpointManager``;
 * ``eval``: ``gather_eval`` / ``gather_arrays`` / ``gather_objects`` of
   this rank's rows of ``DIR/eval.pkl`` (``{'rows': [rank 0's, rank 1's],
   ...}``) and the EgoMCQ accuracies of the result, to ``DIR/rank{r}.pkl``.
@@ -79,7 +83,8 @@ def step(rank, world, out):
     spec = json.loads((out / "model.json").read_text())
     model = DualEncoder(DualEncoderConfig(
         video=VideoTowerConfig(**spec["video"]),
-        text=TextTowerConfig(**spec["text"]), projection_dim=8))
+        text=TextTowerConfig(**spec["text"]),
+        projection_dim=spec.get("proj", 8)))
     model.load_state_dict(torch.load(out / "weights.pt"), strict=True)
     data = torch.load(out / "batch.pt")
     boxes, flips = data["boxes"], data["flips"]
@@ -100,15 +105,24 @@ def step(rank, world, out):
         update()
 
     opt.step = recorded_step
-    ddp = data_parallel(model, torch.device("cpu"))
+    video_only = spec.get("step") in ("oscc", "pnr")
+    ddp = data_parallel(model, torch.device("cpu"), video_only=video_only)
     assert isinstance(ddp, torch.nn.parallel.DistributedDataParallel)
-    if spec.get("step") == "epic":
+    if video_only:
+        step_fn = {"oscc": steps.make_oscc_train_step,
+                   "pnr": steps.make_pnr_train_step}[spec["step"]](
+                       input_res=spec["res"])
+    elif spec.get("step") == "epic":
         step_fn = steps.make_epic_train_step(
             loss_type=spec["loss_type"], input_res=spec["res"],
             margin=spec["margin"])
     else:
         step_fn = steps.make_egoclip_train_step(input_res=spec["res"])
     loss = step_fn(ddp, opt, local, torch.Generator())
+    if video_only:
+        from egovlp_tpu_torch.io.checkpoints import CheckpointManager
+
+        CheckpointManager(str(out / "ckpt")).save_epoch(1, ddp, opt, 0.0)
     torch.save({"loss": loss, "grads": grads, "params": model.state_dict()},
                out / f"rank{rank}.pt")
 
