@@ -12,9 +12,11 @@ Phases, each of which passes or raises (any failure exits non-zero):
    thread, local (spill) bytes a thread and shared memory of the bf16
    tensor-core kernels (K1-fwd, K4-fwd, K1-bwd, K4-bwd) at L 196 and 255,
    hd 64, and of the K2 and K5 streaming instantiations (forward and
-   backward, bf16 and float32) at f 4 and 16, and fails if an L 196 or a
+   backward, bf16 and float32) at f 4 and 16, and of K3-fwd and K3-bwd
+   (the LayerNorm kernels) at both dtypes, and fails if an L 196 or a
    bf16 streaming instantiation (f 4: pretraining; f 16: fine-tuning, the
-   main path of phase 9) spills;
+   main path of phase 9) or a bf16 K3 kernel spills (K1/K2 at ViT-L's D
+   1024 run the same hd 64 instantiations);
 3. forward kernels: K1-fwd and K2-fwd against their plain PyTorch twins
    on unit-normal inputs, float32 (max abs error <= 1e-4) and bf16
    (<= 2e-2), and every output within a relative L2 error
@@ -30,8 +32,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
    times (CUDA events, 20 runs, the launch path included), the kernel's
    own device time (``torch.profiler``, mean of 20 launches) and the bound
    at B 16, f 4, and for K1 and K2 (forward and backward, 3b) also at the
-   fine-tune shapes B 16, f 16 (phase 9) and B 4, f 16 (phase 10), whose
-   outputs are held to the same limits;
+   fine-tune shapes B 16, f 16 (phase 9) and B 4, f 16 (phase 10) and at
+   the ViT-L training shape B 32, f 4, D 1024 with 16 heads (phase 11),
+   whose outputs are held to the same limits;
 3b. backward kernels: K1-bwd and K2-bwd likewise, for each of dq, dk, dv,
    dcls_k and dcls_v (max abs error at float32 <= 1e-4; at bf16 <= 1e-2
    for K1-bwd, whose gradients are ~0.1 at these inputs, and <= 5e-2 for
@@ -61,6 +64,13 @@ Phases, each of which passes or raises (any failure exits non-zero):
    (the four tensor-core kernels and the K2 and K5 streaming kernels) are
    printed beside their scalar bodies' times from ``PERF.md``, SDPA and
    the bound;
+3c. K3, the LayerNorm kernels (``phase_layer_norm``): forward and
+   backward against their plain twins at ``[25088, 1024]`` and ``[32,
+   1024]`` (a ViT-L step's patch and CLS rows) and ``[25088, 768]``
+   (ViT-B's), float32 and bf16, with the limits in its docstring; two
+   K3-bwd launches give the same bits; kernel, device, plain, library
+   (``F.layer_norm`` and its autograd backward) times and the bound at
+   bf16;
 4. serving slice: the full-width dual encoder of ``configs/eval/egomcq.json``
    in bf16 with seeded random weights (time attention initialised
    non-zero, so the time kernel sees real inputs) behind ``serve()``:
@@ -75,7 +85,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
    batches (16 clips + 16 scene negatives = 32 a step), EgoNCE, AdamW and
    ``Trainer.train`` for 2 epochs of 3 steps with checkpoints.  Checks
    finite losses, the kernel launches of every step (12 of each, but 11 of
-   K1-bwd: the last block's space-attention patch outputs reach no loss),
+   K1-bwd: the last block's space-attention patch outputs reach no loss;
+   86 of K3-fwd and 85 of K3-bwd, ``ln_per_step``),
    the first step's loss (within 2e-2) and gradients (cosine >= 0.999 over
    all parameters, >= 0.99 for every block's ``attn.qkv.weight`` and
    ``timeattn.qkv.weight``) against the plain-attention model on the same
@@ -151,7 +162,11 @@ Phases, each of which passes or raises (any failure exits non-zero):
    checkpoint loads strictly into a one-process model; both ranks' EgoMCQ
    accuracies equal one process's (every batch has one process's shapes).
    Launches 12 / 12 / 11 / 12 a step on each rank.  Measured on NVIDIA
-   H100 80GB HBM3, 700 W; bf16 throughout.
+   H100 80GB HBM3, 700 W; bf16 throughout.  In (a) and on each rank of
+   (b): one DDP step of ``global_sim='ring'`` against one of 'gather' from
+   phase 5's weights on (the rank's rows of) phase 5's first batch: the
+   losses within (b)'s loss limit and the updates at (b)'s update cosine
+   (the ranks' ring losses identical).
 9. fine-tuning at 16 frames: a synthetic EPIC-Kitchens MIR tree (two
    ``rgb_frames`` directories of 240 JPEGs at 456 x 256; 64 train and 32
    test clips of 24-80 frames, captions "verb the noun" over 5 verbs and 6
@@ -219,6 +234,25 @@ Phases, each of which passes or raises (any failure exits non-zero):
    ``configs/eval/mq.json`` (``.pt``), equal in cosine to NLQ's features
    of the same clips.  Prints windows a second, with and without the
    decode.
+11. ViT-L EgoClip pretraining (``configs/pt/egoclip_vitl_tp.json``: D
+   1024, 24 blocks, 16 heads, 4 frames) at full width in bf16 on seeded
+   random weights (time attention random), on a seeded batch of 16 clips +
+   16 scene negatives: each recompute mode ('block', 'attn', 'attn_out',
+   'mlp') against no recompute (which fits at this batch): the first step's
+   loss within 1e-5 relative and the gradient of every parameter at cosine
+   >= 0.9999; GradCache at ``grad_accum`` 2 and 4 ('attn_out') against the
+   monolithic step: loss within 1e-4, cosine >= 0.9995, each step's peak
+   memory; every mode's step with AdamW: time, clips/s, peak memory and
+   the launches of every kernel a step, checked (``vitl_step_counts``:
+   'attn_out' runs K1-fwd / K2-fwd 24 times a step, 'attn' and 'block'
+   48); a ``torch.profiler`` breakdown of 3 steps of the config's 'block'
+   (K3's share printed); a loss falling over 4 steps at lr 1e-6.  Then
+   ``cli.train -c configs/pt/egoclip_vitl_tp.json -o mesh.model=1`` on
+   phase 7's tree (1 epoch of 3 steps, EgoMCQ validation, no checkpoint),
+   again with ``-o trainer.grad_accum=2`` and with ``-o
+   loss.args.global_sim="ring"``: launches counted, finite losses, metrics
+   in [0, 100]; prints each run's loop time, clips/s, Loader wait and peak
+   memory.
 
 The last three lines are the ``nvidia-smi`` line, a JSON object with one
 entry per kernel, and ``{"ok": true, "device": {...}}``.
@@ -259,6 +293,10 @@ HS_KERNELS = {
     "time_attention_hs_fwd": "egovlp_tpu/kernels/pallas_attention.py:265",
     "time_attention_hs_bwd": "egovlp_tpu/kernels/pallas_attention.py:278",
 }
+# K3, the LayerNorm kernels (the custom VJP of fused_ln.py, plain jnp on
+# the TPU: the forward, and its backward _ln_bwd)
+LN_KERNELS = {"layer_norm_fwd": "egovlp_tpu/kernels/fused_ln.py:41",
+              "layer_norm_bwd": "egovlp_tpu/kernels/fused_ln.py:67"}
 # the bf16 kernels that run on the tensor cores, and the time their scalar
 # CUDA-core bodies took at the timed shapes, by this script's median_ms
 # (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W), printed beside the
@@ -276,18 +314,25 @@ BODIES = {"space_attention_fwd": "attention_fwd_mma.cuh",
           "grouped_attention_fwd": "attention_fwd_mma.cuh",
           "space_attention_bwd": "attention_bwd_mma.cuh",
           "grouped_attention_bwd": "attention_bwd_mma.cuh",
-          **dict.fromkeys(STREAMING, "time_attention_stream.cuh")}
+          **dict.fromkeys(STREAMING, "time_attention_stream.cuh"),
+          **dict.fromkeys(LN_KERNELS, "layer_norm.cuh")}
 REDESIGNED = {**TENSOR_CORE, **STREAMING}
 FWD = ("space_attention_fwd", "time_attention_fwd")
 BWD = ("space_attention_bwd", "time_attention_bwd")
 HEADS, DIM = 12, 768
+VITL_HEADS, VITL_DIM = 16, 1024  # configs/pt/egoclip_vitl_tp.json
 HD = DIM // HEADS
 SCALE = HD ** -0.5
 TIMED = (16, 4, 196)  # B, f, n of the timed bf16 calls
 TIMED_F16 = (16, 16, 196)  # and of K1/K2 at the 16-frame fine-tune shape
 TIMED_F16_B4 = (4, 16, 196)  # and at the OSCC / PNR batch
-# NVIDIA H100 SXM data sheet: HBM bytes/s and dense bf16 tensor FLOP/s
-PEAK_BYTES, PEAK_BF16_FLOPS = 3.35e12, 989e12
+TIMED_VITL = (32, 4, 196)  # and at the ViT-L training step (D 1024, 16 heads)
+# K3's rows: a ViT-L step's patch rows (32 clips x 4 frames x 196) and CLS
+# rows at D 1024, the patch rows at ViT-B's D 768; the first is timed
+LN_SHAPES = ((25088, VITL_DIM), (32, VITL_DIM), (25088, DIM))
+# NVIDIA H100 SXM data sheet: HBM bytes/s, dense bf16 tensor FLOP/s and
+# float32 FLOP/s outside the tensor cores
+PEAK_BYTES, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
 DEVICE = "cuda"
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "a", "person", "cuts", "an",
          "onion", "opens", "the", "door", "picks", "up", "knife", "##s"]
@@ -301,6 +346,27 @@ CLI_NOUNS = ["door", "onion", "knife", "box", "cup", "table"]
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def attention_counts(counts: dict) -> dict:
+    """The attention kernels' launches of ``counts`` (K3 left out: its
+    launches a pass depend on the towers, see ``ln_per_step``)."""
+    return {k: v for k, v in counts.items() if k not in LN_KERNELS}
+
+
+def ln_per_step(depth: int, text_layers: int, remat: str = "none",
+                n_micro: int = 1) -> dict:
+    """K3 launches of one EgoClip training step: a video tower pass norms
+    6 times a block (norm3, norm1, norm2 on the CLS and patch parts) and
+    once at the end, a text tower pass once and twice a layer.  The
+    backward skips the last block's patch-part norm2 (it reaches no loss).
+    GradCache embeds every micro-batch twice; 'block' recompute runs each
+    block's 6 norms again in the backward."""
+    one = 6 * depth + 1 + 1 + 2 * text_layers
+    fwd = n_micro * one * (2 if n_micro > 1 else 1)
+    if remat == "block":
+        fwd += n_micro * 6 * depth
+    return {"layer_norm_fwd": fwd, "layer_norm_bwd": n_micro * (one - 1)}
 
 
 def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -379,7 +445,7 @@ def body_name(ca, body: int) -> str:
     return {ca.TIME_HS_STREAM: "streaming", ca.TIME_HS_SCALAR: "scalar"}[body]
 
 
-def grid_inputs(B, f, n, dtype, seed, grad=False):
+def grid_inputs(B, f, n, dtype, seed, grad=False, D=DIM):
     """q, k, v, cls_k, cls_v (and do when ``grad``), unit normal."""
     import torch
 
@@ -388,8 +454,8 @@ def grid_inputs(B, f, n, dtype, seed, grad=False):
     def mk(*shape):
         return torch.randn(*shape, device="cuda", generator=g).to(dtype)
 
-    grid = [mk(B, f, n, DIM) for _ in range(4 if grad else 3)]
-    return (*grid[:3], mk(B, 1, DIM), mk(B, 1, DIM), *grid[3:])
+    grid = [mk(B, f, n, D) for _ in range(4 if grad else 3)]
+    return (*grid[:3], mk(B, 1, D), mk(B, 1, D), *grid[3:])
 
 
 def hs_inputs(BH, f, n, dtype, seed, grad=False):
@@ -427,7 +493,7 @@ def bound_ms(name: str, B: int, f: int, n: int, D: int = DIM,
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def sdpa_layout(x, axis: str, grad: bool):
+def sdpa_layout(x, axis: str, grad: bool, H: int = HEADS):
     """The kernel's inputs laid out for ``F.scaled_dot_product_attention``:
     space q [B*f, H, n, hd], k/v [B*f, H, n+1, hd]; time q [B*n, H, f, hd],
     k/v [B*n, H, f+1, hd]; CLS first.  (Plus do laid out as q.)"""
@@ -435,18 +501,18 @@ def sdpa_layout(x, axis: str, grad: bool):
 
     q, k, v, ck, cv = x[:5]
     B, f, n, D = q.shape
-    hd = D // HEADS
+    hd = D // H
     groups, rows = (B * f, n) if axis == "space" else (B * n, f)
 
     def heads(t):
         if axis == "time":
             t = t.permute(0, 2, 1, 3)
-        return t.reshape(groups, rows, HEADS, hd).transpose(1, 2).contiguous()
+        return t.reshape(groups, rows, H, hd).transpose(1, 2).contiguous()
 
     def with_cls(c, t):
         reps = f if axis == "space" else n
-        c = c.reshape(B, 1, 1, HEADS, hd).expand(B, reps, 1, HEADS, hd)
-        c = c.reshape(groups, 1, HEADS, hd).transpose(1, 2)
+        c = c.reshape(B, 1, 1, H, hd).expand(B, reps, 1, H, hd)
+        c = c.reshape(groups, 1, H, hd).transpose(1, 2)
         return torch.cat([c, heads(t)], dim=2).contiguous()
 
     out = [heads(q), with_cls(ck, k), with_cls(cv, v)]
@@ -506,9 +572,12 @@ def phase_kernels(ca, smi: str) -> dict:
     rel_tol_rounding = dict.fromkeys(REDESIGNED, 1e-3)
 
     def call(fn, name, x):
+        """K4/K5 take q already scaled; K1/K2 the heads of the inputs'
+        width (12 at ViT-B's D 768, 16 at ViT-L's 1024: hd 64 both)."""
         if name in HS_KERNELS:
             return fn(*x)
-        return fn(*x, heads=HEADS, scale=SCALE)
+        heads = VITL_HEADS if x[0].shape[-1] == VITL_DIM else HEADS
+        return fn(*x, heads=heads, scale=SCALE)
 
     def check_kernel(name, x, label):
         """Runs the kernel and its plain twin on ``x``, prints and checks
@@ -592,7 +661,7 @@ def phase_kernels(ca, smi: str) -> dict:
             raise RuntimeError(f"{name} took L 256 (257 keys) at bf16")
         del x
 
-    def time_kernel(name, B, f, n) -> dict:
+    def time_kernel(name, B, f, n, D=DIM) -> dict:
         """Times ``name`` at bf16 ``[B, f, n, D]`` (K4/K5: ``[B * H, f, n,
         hd]``) against its plain twin, SDPA and the bound, and holds it to
         the twin; returns its row."""
@@ -604,10 +673,12 @@ def phase_kernels(ca, smi: str) -> dict:
             scale, shape, label = 1.0, [B * HEADS, f, n, HD], f"BH{B * HEADS}"
             bound, bound_by = bound_ms(name, B * HEADS, f, n, D=HD)
         else:
-            x = grid_inputs(B, f, n, torch.bfloat16, seed=B + f - 4, grad=bwd)
-            lay = sdpa_layout(x, name.split("_")[0], grad=bwd)
-            scale, shape, label = SCALE, [B, f, n, DIM], f"B{B}"
-            bound, bound_by = bound_ms(name, B, f, n)
+            x = grid_inputs(B, f, n, torch.bfloat16, seed=B + f - 4, grad=bwd,
+                            D=D)
+            H = VITL_HEADS if D == VITL_DIM else HEADS
+            lay = sdpa_layout(x, name.split("_")[0], grad=bwd, H=H)
+            scale, shape, label = SCALE, [B, f, n, D], f"B{B} D{D}"
+            bound, bound_by = bound_ms(name, B, f, n, D=D)
         t_plain = median_ms(lambda: call(plain, name, x))
         t_kernel = median_ms(lambda: call(kernel, name, x))
         t_device = device_ms(lambda: call(kernel, name, x))
@@ -659,6 +730,8 @@ def phase_kernels(ca, smi: str) -> dict:
     for name in KERNELS:
         rows[name]["f16"] = time_kernel(name, *TIMED_F16)
         rows[name]["f16_b4"] = time_kernel(name, *TIMED_F16_B4)
+        # and at the ViT-L training step's width (phase 11's main path)
+        rows[name]["vitl"] = time_kernel(name, *TIMED_VITL, D=VITL_DIM)
     B, f, n = TIMED
     # K5's scalar body, the route of the shapes the streaming body does not
     # take: at the timed shape with q one element off a 16-byte boundary
@@ -699,6 +772,122 @@ def phase_kernels(ca, smi: str) -> dict:
                   f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms [{smi}]",
                   flush=True)
     return rows
+
+
+def ln_bound_ms(name: str, rows: int, D: int, itemsize: int = 2):
+    """``(ms, 'bytes' | 'operations')``: the least time of K3's work on
+    ``[rows, D]`` on an H100: the forward reads x and writes y, the
+    backward reads x and dy and writes dx (the float32 parameters and row
+    statistics are under 0.1% of it), over HBM bandwidth; against ~8
+    (forward) or ~15 (backward) float32 operations an element over the
+    float32 rate."""
+    elems = rows * D
+    fwd = name.endswith("fwd")
+    t_bytes = (2 if fwd else 3) * elems * itemsize / PEAK_BYTES
+    t_ops = (8 if fwd else 15) * elems / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_layer_norm(smi: str) -> dict:
+    """Phase 3c: K3-fwd and K3-bwd against their plain twins at
+    ``LN_SHAPES``, float32 and bf16 (relative L2 of y, dx, mu and rstd <=
+    1e-5 at float32 and, for y and dx, 2e-3 at bf16: one rounding from
+    float32 values that agree to ~1e-6; dscale and dbias, float32 sums, <=
+    1e-5 at both); two K3-bwd launches must give the same bits; then, at
+    each bf16 shape, kernel, device, plain and library times
+    (``F.layer_norm`` with the parameters in the activation dtype, and
+    ``autograd.grad`` of it minus its forward) and the bound.  Returns the
+    rows, the first shape's at the top."""
+    import torch
+    import torch.nn.functional as F
+
+    from egovlp_tpu_torch.kernels import fused_ln
+
+    def inputs(rows, D, dtype, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = (torch.randn(rows, D, device="cuda", generator=g) * 2 + 0.5)
+        dy = torch.randn(rows, D, device="cuda", generator=g)
+        scale = 1 + 0.3 * torch.randn(D, device="cuda", generator=g)
+        bias = torch.randn(D, device="cuda", generator=g)
+        return x.to(dtype), scale, bias, dy.to(dtype)
+
+    def rel(got, want):
+        got, want = got.double(), want.double()
+        return ((got - want).norm() / want.norm()).item()
+
+    def check_ln(x, scale, bias, dy, label):
+        y, mu, rstd = fused_ln.layer_norm_fwd(x, scale, bias, 1e-6)
+        grads = fused_ln.layer_norm_bwd(x, scale, mu, rstd, dy)
+        torch.cuda.synchronize()
+        wy, wmu, wrstd = fused_ln.layer_norm_fwd_plain(x, scale, bias, 1e-6)
+        want = fused_ln.layer_norm_bwd_plain(x, scale, wmu, wrstd, dy)
+        t = 1e-5 if x.dtype == torch.float32 else 2e-3
+        outs = {"y": (y, wy, t), "mu": (mu, wmu, 1e-5),
+                "rstd": (rstd, wrstd, 1e-5), "dx": (grads[0], want[0], t),
+                "dscale": (grads[1], want[1], 1e-5),
+                "dbias": (grads[2], want[2], 1e-5)}
+        errs = {k: (rel(g, w), (g.double() - w.double()).abs().max().item())
+                for k, (g, w, _) in outs.items()}
+        ok = all(errs[k][0] <= lim and bool(torch.isfinite(g).all())
+                 for k, (g, _, lim) in outs.items())
+        print(f"check layer_norm {str(x.dtype)[6:]} {label}: rel_l2/max_abs "
+              + " ".join(f"{k} {r:.1e}/{a:.2e}" for k, (r, a) in errs.items())
+              + f" (tol {t:.0e}, dscale/dbias 1e-5) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, "K3 disagrees with its plain version")
+        return (max(errs[k][1] for k in ("y", "mu", "rstd")),
+                max(errs[k][1] for k in ("dx", "dscale", "dbias")))
+
+    for rows, D in LN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_ln(*inputs(rows, D, dtype, rows + D), f"[{rows}, {D}]")
+    out = {}
+    for rows, D in LN_SHAPES:
+        x, scale, bias, dy = inputs(rows, D, torch.bfloat16, D)
+        err_f, err_b = check_ln(x, scale, bias, dy,
+                                f"[{rows}, {D}] (timed inputs)")
+        _, mu, rstd = fused_ln.layer_norm_fwd(x, scale, bias, 1e-6)
+        again = [fused_ln.layer_norm_bwd(x, scale, mu, rstd, dy)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*again))
+        print(f"check layer_norm_bwd bf16 [{rows}, {D}]: two launches "
+              f"{'give the same bits' if same else 'DIFFER'}", flush=True)
+        check(same, "layer_norm_bwd is not deterministic")
+        sc, bi = scale.to(x.dtype), bias.to(x.dtype)
+        lib_f = median_ms(lambda: F.layer_norm(x, (D,), sc, bi, 1e-6))
+        leaves = [t.clone().requires_grad_() for t in (x, sc, bi)]
+        lib_b = median_ms(lambda: torch.autograd.grad(
+            F.layer_norm(leaves[0], (D,), *leaves[1:], 1e-6), leaves,
+            dy)) - lib_f
+        calls = {
+            "layer_norm_fwd": (
+                lambda: fused_ln.layer_norm_fwd(x, scale, bias, 1e-6),
+                lambda: fused_ln.layer_norm_fwd_plain(x, scale, bias, 1e-6),
+                lib_f, err_f),
+            "layer_norm_bwd": (
+                lambda: fused_ln.layer_norm_bwd(x, scale, mu, rstd, dy),
+                lambda: fused_ln.layer_norm_bwd_plain(x, scale, mu, rstd, dy),
+                lib_b, err_b)}
+        for name, (kernel, plain, t_lib, err) in calls.items():
+            t_plain = median_ms(plain)
+            t_kernel = median_ms(kernel)
+            t_device = device_ms(kernel)
+            bound, bound_by = ln_bound_ms(name, rows, D)
+            print(f"time {name} bf16 [{rows}, {D}]: kernel {t_kernel:.4f} ms "
+                  f"(device {t_device:.4f} ms), plain {t_plain:.4f} ms, "
+                  f"library {t_lib:.4f} ms, bound {bound:.4f} ms "
+                  f"({bound_by}) [{smi}]", flush=True)
+            row = {"ms": t_kernel, "device_ms": t_device, "plain_ms": t_plain,
+                   "library_ms": t_lib, "bound_ms": bound, "bound_by": bound_by,
+                   "max_abs_err": err, "dtype": "bfloat16",
+                   "shape": [rows, D]}
+            if name in out:
+                out[name].setdefault("other_shapes", []).append(row)
+            else:
+                out[name] = row
+        del x, scale, bias, dy, mu, rstd, again, leaves
+    return out
 
 
 def phase_slice(ca, smi: str) -> tuple:
@@ -758,6 +947,8 @@ def phase_slice(ca, smi: str) -> tuple:
         want = 12 * passes if name in FWD else 0
         check(counts[name] == want,
               f"{name}: {counts[name]} launches, expected {want}")
+    check(counts["layer_norm_fwd"] > 0 and counts["layer_norm_bwd"] == 0,
+          "serving: K3-fwd never launched, or K3-bwd launched")
     check(text_emb.shape == (len(TEXTS), 256)
           and np.isfinite(text_emb).all(), f"text {text_emb.shape}")
     for n, out in outs.items():
@@ -847,10 +1038,10 @@ def cosine(a, b) -> float:
     return float((a @ b) / (a.norm() * b.norm()))
 
 
-def train_setup(steps_per_epoch: int = 3):
+def train_setup(steps_per_epoch: int = 3, global_sim: str = "gather"):
     """Phase 5's training set-up, shared by phase 8: the architecture of
     ``configs/pt/egoclip.json`` with random time attention, the AdamW
-    schedule and the EgoClip step."""
+    schedule and the EgoClip step (``global_sim``: its similarity)."""
     from egovlp_tpu_torch.io.config import load_config
     from egovlp_tpu_torch.train.steps import make_egoclip_train_step
 
@@ -865,7 +1056,8 @@ def train_setup(steps_per_epoch: int = 3):
     step = make_egoclip_train_step(
         loss_type=config["loss"]["type"],
         input_res=config["data_loader"]["args"]["video_params"]["input_res"],
-        temperature=float(loss_args.get("temperature", 0.05)))
+        temperature=float(loss_args.get("temperature", 0.05)),
+        global_sim=global_sim)
     return config["arch"], sched, step
 
 
@@ -958,7 +1150,8 @@ def phase_train(ca, smi: str) -> tuple:
     # block's space backward: 11 a step
     per_step = {name: 12 for name in KERNELS}
     per_step["space_attention_bwd"] = 11
-    for name in KERNELS:
+    per_step.update(ln_per_step(cfg.video.depth, cfg.text.n_layers))
+    for name in (*KERNELS, *LN_KERNELS):
         check(counts[name] == per_step[name] * n_steps,
               f"{name}: {counts[name]} launches, expected "
               f"{per_step[name] * n_steps}")
@@ -1059,6 +1252,12 @@ def profile_calls(label: str, fn, smi: str, n: int = 3) -> None:
         print(f"profile {label} kernel "
               f"{e.self_device_time_total / 1e3 / n:9.3f} ms/call "
               f"{e.count / n:6.0f}x  {e.key[:90]}", flush=True)
+    k3 = [e for e in rows if "k3::" in e.key]
+    k3_ms = sum(e.self_device_time_total for e in k3) / 1e3 / n
+    print(f"profile {label}: K3 (LayerNorm kernels) {k3_ms:.3f} ms/call, "
+          f"{sum(e.count for e in k3) / n:.0f} launches/call, "
+          f"{k3_ms / busy if busy else 0.0:.1%} of the device busy time "
+          f"[{smi}]", flush=True)
 
 
 def phase_head_split(ca, smi: str) -> dict:
@@ -1350,11 +1549,14 @@ def phase_train_cli(ca, smi: str, root: Path) -> dict:
             "count"] == 6, f"{n_steps} steps, {len(vals)} validations")
         per_step = {name: 12 for name in KERNELS}
         per_step["space_attention_bwd"] = 11
-        for name, c in counts.items():
+        for name, c in attention_counts(counts).items():
             want = (per_step[name] * n_steps if name in KERNELS else 0) + (
                 12 * passes if name in FWD else 0)
             check(c == want, f"{name}: {c} launches in cli.train, expected "
                              f"{want}")
+        for name, c in ln_per_step(12, 6).items():  # and the validations'
+            check(counts[name] >= c * n_steps, f"{name}: {counts[name]} "
+                  f"launches in cli.train, fewer than the steps' {c * n_steps}")
         values = [float(v) for v in losses]
         print(f"train_cli losses: {[round(v, 5) for v in values]}",
               flush=True)
@@ -1485,11 +1687,54 @@ def flat_grads(model):
 
 def check_launches(counts: dict, n_steps: int, label: str) -> None:
     """12 / 12 / 11 / 12 launches of K1-fwd / K2-fwd / K1-bwd / K2-bwd a
-    training step (phase 5), no K4 / K5."""
-    for name, c in counts.items():
+    training step (phase 5), no K4 / K5, and phase 5's K3 launches."""
+    for name, c in ln_per_step(12, 6).items():
+        check(counts[name] == c * n_steps,
+              f"{label}: {name} {counts[name]} launches, expected "
+              f"{c * n_steps}")
+    for name, c in attention_counts(counts).items():
         per_step = 11 if name == "space_attention_bwd" else 12
         want = per_step * n_steps if name in KERNELS else 0
         check(c == want, f"{label}: {name} {c} launches, expected {want}")
+
+
+def ring_vs_gather(arch, sched, initial: dict, batch: dict, device) -> dict:
+    """One DDP step each of the gather and the ring EgoClip step (phase 5's
+    architecture, AdamW) from ``initial`` on this rank's ``batch``, in the
+    current process group: the losses, and the cosine and largest
+    difference of the two parameter updates."""
+    import torch
+
+    from egovlp_tpu_torch import build
+    from egovlp_tpu_torch.train.recipes import data_parallel, step_generator
+    from egovlp_tpu_torch.train.state import make_optimizer
+
+    losses, updates = {}, {}
+    for sim in ("gather", "ring"):
+        _, _, step = train_setup(global_sim=sim)
+        model, _ = build.build_model(arch, device)
+        model.load_state_dict(initial)
+        opt, _ = make_optimizer(model, **sched)
+        losses[sim] = float(step(data_parallel(model, device), opt, batch,
+                                 step_generator(DEVICE, 0, 1, 0)))
+        updates[sim] = torch.cat([(p.detach().cpu() - initial[k]).flatten()
+                                  for k, p in model.state_dict().items()])
+        del model, opt
+        torch.cuda.empty_cache()
+    u_cos = cosine(updates["ring"], updates["gather"])
+    d_param = (updates["ring"] - updates["gather"]).abs().max().item()
+    d_loss = abs(losses["ring"] - losses["gather"])
+    return {"losses": losses, "update_cos": u_cos, "d_loss": d_loss,
+            "text": f"losses {losses} (diff {d_loss:.3e}, tol "
+                    f"{DDP_LOSS_TOL}); update cosine {u_cos:.6f} (>= "
+                    f"{DDP_UPDATE_COS}), max abs diff {d_param:.3e}"}
+
+
+def check_ring(ring: dict, label: str) -> None:
+    """Phase 8's limits on ``ring_vs_gather``."""
+    check(ring["d_loss"] <= DDP_LOSS_TOL
+          and ring["update_cos"] >= DDP_UPDATE_COS,
+          f"{label}: the ring step is not the gather step")
 
 
 def phase_ddp(ca, smi: str, ref: dict, data: Path) -> dict:
@@ -1592,6 +1837,12 @@ def phase_ddp(ca, smi: str, ref: dict, data: Path) -> dict:
               f"{ref['step_ms']:.2f} ms [{smi}]", flush=True)
         del plain, plain_opt, turns
         del ddp, model, opt
+        torch.cuda.empty_cache()
+        ring = ring_vs_gather(arch, sched, ref["initial"],
+                              to_device(ref["batches"][0], DEVICE), device)
+        print(f"ddp world 1 (nccl) ring vs gather, one step on phase 5's "
+              f"first batch: {ring['text']}", flush=True)
+        check_ring(ring, "ddp world 1")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -1683,6 +1934,13 @@ def phase_ddp(ca, smi: str, ref: dict, data: Path) -> dict:
               f"{statistics.median(res[0]['step_ms'][1:]):.2f} ms, rank 1 "
               f"{statistics.median(res[1]['step_ms'][1:]):.2f} ms [{smi}]",
               flush=True)
+        for r, x in enumerate(res):
+            print(f"ddp world 2 rank {r} ring vs gather, one step on its "
+                  f"rows of phase 5's first batch: {x['ring']['text']}",
+                  flush=True)
+            check_ring(x["ring"], f"ddp world 2 rank {r}")
+        check(res[0]["ring"]["losses"] == res[1]["ring"]["losses"],
+              "the ranks' ring losses differ")
         got = [x["metrics"] for x in res]
         print(f"ddp world 2 EgoMCQ validation: {got}; one process "
               f"{want_mcq}", flush=True)
@@ -1711,6 +1969,7 @@ def ddp_worker(out: Path, data: Path) -> None:
         data_parallel,
         make_train_epoch_fn,
         resolve_device,
+        to_device,
     )
     from egovlp_tpu_torch.train.state import make_optimizer
 
@@ -1756,10 +2015,15 @@ def ddp_worker(out: Path, data: Path) -> None:
         torch.save(first[0], out / "grads.pt")
     del ddp, model, opt, first
     torch.cuda.empty_cache()
+    initial = torch.load(out / "initial.pt", weights_only=True)
+    ring = ring_vs_gather(arch, sched, initial,
+                          to_device(batches[0], device), device)
+    del initial
+    torch.cuda.empty_cache()
     metrics = cli_eval.main(ddp_eval_args(data))
     (out / f"rank{rank}.json").write_text(json.dumps({
         "losses": losses, "step_ms": times, "launches": launches,
-        "missing": missing, "metrics": metrics}))
+        "missing": missing, "metrics": metrics, "ring": ring}))
     dist.destroy_process_group()
     print(f"ddp worker rank {rank} of {world}: done", flush=True)
 
@@ -2049,7 +2313,7 @@ def phase_finetune(ca, smi: str, root: Path) -> dict:
         passes = sum(-(-FT_CLIPS["test"] // bs) for _ in embeds)
         check(n_steps == 6 and len(vals) == 2 and opt.param_groups[0][
             "count"] == 6, f"{n_steps} steps, {len(vals)} validations")
-        for name, c in counts.items():
+        for name, c in attention_counts(counts).items():
             want = ((11 if name == "space_attention_bwd" else 12) * n_steps
                     if name in KERNELS else 0) + (
                 12 * passes if name in FWD else 0)
@@ -2438,12 +2702,17 @@ def phase_oscc_pnr(ca, smi: str, root: Path) -> dict:
             check(n_steps == 2 * steps_per_epoch and len(vals) == 2
                   and opt.param_groups[0]["count"] == n_steps,
                   f"{task}: {n_steps} steps, {len(vals)} validations")
-            for name, c in counts.items():
+            for name, c in attention_counts(counts).items():
                 want = ((11 if name == "space_attention_bwd" else 12)
                         * n_steps if name in KERNELS else 0) + (
                     12 * passes if name in FWD else 0)
                 check(c == want, f"{name}: {c} launches in the {task} "
                                  f"cli.train, expected {want}")
+            # video only: 73 norms a tower pass, 72 in its backward
+            check(counts["layer_norm_fwd"] >= 73 * n_steps
+                  and counts["layer_norm_bwd"] == 72 * n_steps,
+                  f"{task}: K3 launches {counts}")
+            for name, c in counts.items():
                 total[name] += c
             values = [float(v) for v in losses]
             print(f"oscc_pnr cli.train {task} losses: "
@@ -2569,10 +2838,12 @@ def phase_extract(ca, smi: str, root: Path) -> dict:
           f"micro-batches of up to 4 windows x 4 frames", flush=True)
     check(len(embeds) == micro, f"{len(embeds)} micro-batches, expected "
                                 f"{micro}")
-    for name, c in counts.items():
+    for name, c in attention_counts(counts).items():
         want = 12 * micro if name in FWD else 0
         check(c == want, f"{name}: {c} launches in cli.extract, expected "
                          f"{want}")
+    check(counts["layer_norm_fwd"] == 73 * micro
+          and counts["layer_norm_bwd"] == 0, f"cli.extract K3 {counts}")
     print(f"extract cli.extract nlq video: {n_win} windows of 4 frames in "
           f"{wall:.3f} s ({n_win / wall:.1f} windows/s with decode and "
           f"model set-up), embedding {embed_s:.3f} s ({n_win / embed_s:.1f} "
@@ -2629,7 +2900,7 @@ def phase_extract(ca, smi: str, root: Path) -> dict:
         check(cls.shape == (256,) and tuple(tok.shape) == (30, 256)
               and np.isfinite(cls).all() and bool(tok.isfinite().all()),
               f"text features {cls.shape}, {tuple(tok.shape)}")
-    check(not any(text_counts.values()),
+    check(not any(attention_counts(text_counts).values()),
           f"text extraction launched video kernels: {text_counts}")
     cli_extract.main(["-c", cfg["mq"], "--out", str(out / "mq"),
                       "--save_format", "pt", *ov])
@@ -2645,6 +2916,270 @@ def phase_extract(ca, smi: str, root: Path) -> dict:
           f"cosine {mq_cos:.6f}", flush=True)
     check(mq_cos >= 0.9999, "MQ features disagree with NLQ's")
     return counts
+
+
+# ---- phase 11: ViT-L EgoClip pretraining ----------------------------------------
+
+VITL_CONFIG = "configs/pt/egoclip_vitl_tp.json"
+VITL_MODES = ("block", "attn", "attn_out", "mlp")
+# phase 11's limits on the first step at 16 + 16 clips (all parameters'
+# gradients): each recompute mode against no recompute (the same ops on the
+# same inputs, so float32 sums in another order at most), and GradCache
+# against the monolithic step (each micro-batch's backward sums its part)
+VITL_LOSS_REL, VITL_GRAD_COS = 1e-5, 0.9999
+GC_LOSS_REL, GC_GRAD_COS = 1e-4, 0.9995
+VITL_DESCENT_LR = 1e-6  # the falling-loss check (as phase 10's)
+
+
+def vitl_arch(remat) -> dict:
+    """The architecture of the ViT-L config with random time attention and
+    the recompute mode ``remat``."""
+    from egovlp_tpu_torch.io.config import load_config
+
+    config = load_config(str(ROOT / VITL_CONFIG))
+    config.override("arch.args.video_params.time_init", "random")
+    config.override("arch.args.video_params.remat", remat)
+    return config["arch"]
+
+
+def vitl_step_counts(remat, n_micro: int = 1) -> dict:
+    """The kernel launches of one ViT-L EgoClip step (24 blocks, 6 text
+    layers): each micro-batch's forward with grad runs K1-fwd / K2-fwd once
+    a block, and again in the backward under 'attn' or 'block'; GradCache
+    first embeds every micro-batch without grad; the backward runs K2-bwd
+    once a block and K1-bwd in all but the last block."""
+    mode = {True: "block", False: "none"}.get(remat, remat)
+    per = 24 * (2 if mode in ("attn", "block") else 1)
+    fwd = n_micro * per + (n_micro * 24 if n_micro > 1 else 0)
+    return {"space_attention_fwd": fwd, "time_attention_fwd": fwd,
+            "space_attention_bwd": 23 * n_micro,
+            "time_attention_bwd": 24 * n_micro,
+            **ln_per_step(24, 6, mode, n_micro)}
+
+
+def big_cosine(a, b, chunk: int = 1 << 26) -> float:
+    """``cosine`` in float64 chunks (a ViT-L gradient is 470M values)."""
+    dot = na = nb = 0.0
+    for i in range(0, a.numel(), chunk):
+        x, y = a[i:i + chunk].double(), b[i:i + chunk].double()
+        dot, na, nb = dot + float(x @ y), na + float(x @ x), nb + float(y @ y)
+    return dot / (na * nb) ** 0.5
+
+
+def phase_vitl(ca, smi: str, root: Path) -> dict:
+    """Phase 11 on phase 7's tree (``root / 'data'``); returns the kernel
+    launches of the first ``cli.train`` run."""
+    import torch
+
+    from egovlp_tpu_torch import build
+    from egovlp_tpu_torch.cli import train as cli_train
+    from egovlp_tpu_torch.train import recipes
+    from egovlp_tpu_torch.train.recipes import to_device
+    from egovlp_tpu_torch.train.state import make_optimizer
+    from egovlp_tpu_torch.train.steps import make_egoclip_train_step
+
+    batch = to_device(egoclip_batch(np.random.default_rng(11)), DEVICE)
+    clips = 2 * len(batch["frames"])  # 16 + 16 scene negatives
+
+    def fresh(remat):
+        """The ViT-L model with the same seeded weights for every mode."""
+        model, cfg = build.build_model(vitl_arch(remat), DEVICE)
+        build.init_params(model, seed=0)
+        return model, cfg
+
+    def gen(i=0):
+        return torch.Generator(device=DEVICE).manual_seed(1 + i)
+
+    def first_step(model, n_micro=1):
+        """The first step's loss and gradient, and the step's peak memory
+        above what was resident before it (activations and gradients)."""
+        step = make_egoclip_train_step(n_micro=n_micro)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = step(model, NoUpdate(model), batch, gen()).item()
+        peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        return loss, flat_grads(model), peak
+
+    # ---- each recompute mode against no recompute, at 16 + 16 clips -------
+    model, cfg = fresh(False)
+    check(model.video_model.dtype == torch.bfloat16
+          and (cfg.video.embed_dim, cfg.video.depth, cfg.video.num_heads)
+          == (VITL_DIM, 24, VITL_HEADS) and cfg.text.n_layers == 6
+          and cfg.projection_dim == 256, f"not the full-width ViT-L: {cfg}")
+    n_params = sum(p.numel() for p in model.parameters())
+    ref_loss, ref_g, ref_peak = first_step(model)
+    print(f"vitl model: {n_params / 1e6:.1f}M parameters; no recompute, "
+          f"{clips} clips: first-step loss {ref_loss:.6f}, the step's peak "
+          f"above the weights {ref_peak:.2f} GiB [{smi}]", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    kept = {}
+    for mode in VITL_MODES:
+        model, _ = fresh(mode)
+        loss, g, peak = first_step(model)
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        cos = big_cosine(g, ref_g)
+        print(f"vitl remat={mode!r} vs no recompute: loss {loss:.6f} "
+              f"(rel diff {rel:.2e}, tol {VITL_LOSS_REL:.0e}), gradient "
+              f"cosine {cos:.7f} (>= {VITL_GRAD_COS}); the step's peak above "
+              f"the weights {peak:.2f} GiB (no recompute {ref_peak:.2f}) "
+              f"[{smi}]", flush=True)
+        check(rel <= VITL_LOSS_REL and cos >= VITL_GRAD_COS,
+              f"remat={mode!r} differs from no recompute")
+        if mode == "attn_out":
+            kept = {"loss": loss, "g": g, "peak": peak}
+        del model, g
+        torch.cuda.empty_cache()
+    del ref_g
+
+    # ---- GradCache against the monolithic step (remat 'attn_out') --------
+    for k in (2, 4):
+        model, _ = fresh("attn_out")
+        loss, g, peak = first_step(model, n_micro=k)
+        rel = abs(loss - kept["loss"]) / abs(kept["loss"])
+        cos = big_cosine(g, kept["g"])
+        print(f"vitl grad_accum={k} (remat 'attn_out') vs the monolithic "
+              f"step: loss {loss:.6f} vs {kept['loss']:.6f} (rel diff "
+              f"{rel:.2e}, tol {GC_LOSS_REL:.0e}), gradient cosine "
+              f"{cos:.7f} (>= {GC_GRAD_COS}); the step's peak above the "
+              f"weights {peak:.2f} GiB, monolithic {kept['peak']:.2f} GiB "
+              f"[{smi}]", flush=True)
+        check(rel <= GC_LOSS_REL and cos >= GC_GRAD_COS,
+              f"grad_accum={k} differs from the monolithic step")
+        del model, g
+        torch.cuda.empty_cache()
+    del kept
+
+    # ---- each mode's step at 16 + 16 clips with AdamW: time, memory,
+    # launches --------------------------------------------------------------
+    opt_args = dict(base_lr=3e-5, milestones=(60, 80), steps_per_epoch=3)
+    for mode in (False, *VITL_MODES):
+        model, _ = fresh(mode)
+        opt, _ = make_optimizer(model, **opt_args)
+        step = make_egoclip_train_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(model, opt, batch, gen())  # warm: AdamW's state appears
+        ca.reset_launch_counts()
+        times = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(model, opt, batch, gen(i + 1))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(ca.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = statistics.median(times)
+        print(f"vitl step remat={mode!r}, {clips} clips, AdamW: median of 3 "
+              f"{ms:.2f} ms ({clips / ms * 1e3:.1f} clips/s), peak memory "
+              f"{peak:.2f} GiB (weights, AdamW state and the step); "
+              f"launches a step {({k: v // 3 for k, v in counts.items()})} "
+              f"[{smi}]", flush=True)
+        want = vitl_step_counts(mode)
+        for name, c in counts.items():
+            check(c == 3 * want.get(name, 0), f"vitl remat={mode!r}: {name} "
+                  f"{c} launches in 3 steps, expected {3 * want.get(name, 0)}")
+        if mode == "block":  # the config's own mode
+            profile_calls("vitl train step (remat 'block')",
+                          lambda i: step(model, opt, batch, gen(10 + i)), smi)
+        del model, opt
+        torch.cuda.empty_cache()
+
+    # ---- 4 steps on one batch lower its loss -----------------------------
+    model, _ = fresh("attn_out")
+    opt, _ = make_optimizer(model, **{**opt_args, "base_lr": VITL_DESCENT_LR})
+    step = make_egoclip_train_step()
+    same = [step(model, opt, batch, gen()).item() for _ in range(4)]
+    print(f"vitl 4 steps on one batch at lr {VITL_DESCENT_LR}: losses "
+          f"{[round(v, 5) for v in same]}", flush=True)
+    check(all(np.isfinite(same)) and same[-1] < same[0],
+          "the ViT-L loss on a repeated batch did not fall")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+
+    # ---- cli.train on the config, as shipped but for mesh.model ----------
+    data = root / "data"
+    ov = [a for o in tree_overrides(data) + [
+        'arch.args.video_params.time_init="random"',
+        f"trainer.save_dir={json.dumps(str(root / 'vitl_results'))}",
+        "mesh.model=1", "trainer.epochs=1",
+        "trainer.max_samples_per_epoch=48",
+        # no checkpoint: 5.7 GB of weights and AdamW state each
+        "trainer.save_period=100", 'trainer.monitor="off"']
+        for a in ("-o", o)]
+    ends, losses, vals = [], [], []
+    make_step, evaluate = (recipes.make_egoclip_train_step,
+                           recipes.evaluate_egomcq)
+    stack = contextlib.ExitStack()
+    waits = stack.enter_context(loader_waits())
+
+    def timed_evaluate(model, loader, input_res=224):
+        vals.append(evaluate(model, loader, input_res))
+        return vals[-1]
+
+    recipes.make_egoclip_train_step = timed_step_maker(make_step, ends,
+                                                       losses)
+    recipes.evaluate_egomcq = timed_evaluate
+    runs = (("as shipped", [], 1),
+            ("grad_accum 2", ["-o", "trainer.grad_accum=2"], 2),
+            ("ring", ["-o", 'loss.args.global_sim="ring"'], 1))
+    first = None
+    try:
+        for label, extra, n_micro in runs:
+            ends.clear(), losses.clear(), vals.clear()
+            waits.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # ---- the main path, counted (the first run) -----------------
+            ca.reset_launch_counts()
+            model, opt = cli_train.main(["--config", str(ROOT / VITL_CONFIG),
+                                         *ov, *extra])
+            torch.cuda.synchronize()
+            counts = dict(ca.launches)
+            # ------------------------------------------------------------
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            first = first or counts
+            check(model.cfg.video.embed_dim == VITL_DIM
+                  and model.cfg.video.depth == 24
+                  and model.cfg.video.remat_mode == "block",
+                  "not the ViT-L config")
+            n_steps, passes = len(ends), 2 * len(vals)
+            check(n_steps == 3 and len(vals) == 1
+                  and opt.param_groups[0]["count"] == 3,
+                  f"{label}: {n_steps} steps, {len(vals)} validations")
+            want = vitl_step_counts("block", n_micro)
+            for name, c in attention_counts(counts).items():
+                w = want.get(name, 0) * n_steps + (24 * passes
+                                                   if name in FWD else 0)
+                check(c == w, f"vitl cli.train {label}: {name} {c} launches,"
+                              f" expected {w}")
+            for name in LN_KERNELS:
+                check(counts[name] >= want[name] * n_steps,
+                      f"vitl cli.train {label}: {name} {counts[name]}")
+            values = [float(v) for v in losses]
+            check(all(np.isfinite(values)), f"{label}: a loss is not finite")
+            check(set(vals[0]) == {"Intra-video", "Inter-video"}
+                  and all(0.0 <= v <= 100.0 for v in vals[0].values()),
+                  f"{label}: EgoMCQ metrics {vals[0]}")
+            torch.cuda.synchronize()
+            loop_ms = statistics.median(a.elapsed_time(b)
+                                        for a, b in zip(ends, ends[1:]))
+            wait_ms = statistics.median(waits["train"]) * 1e3
+            print(f"vitl cli.train ({label}): losses "
+                  f"{[round(v, 5) for v in values]}; EgoMCQ {vals[0]}; "
+                  f"launches {counts}; loop median step end to step end "
+                  f"{loop_ms:.2f} ms ({clips / loop_ms * 1e3:.1f} clips/s), "
+                  f"median Loader wait {wait_ms:.2f} ms a batch, peak memory "
+                  f"{peak:.2f} GiB [{smi}]", flush=True)
+            del model, opt
+            torch.cuda.empty_cache()
+    finally:
+        recipes.make_egoclip_train_step = make_step
+        recipes.evaluate_egomcq = evaluate
+        stack.close()
+    return first
 
 
 def main() -> None:
@@ -2702,7 +3237,24 @@ def main() -> None:
             check(L != 196 or local.value == 0,
                   f"{name} spills to local memory at L 196, hd {HD}")
 
+    for name in LN_KERNELS:  # K3's resources
+        attributes = getattr(lib, f"egovlp_{name}_attributes")
+        for dtype, code in (("bfloat16", 1), ("float32", 0)):
+            regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            rc = attributes(code, ctypes.byref(regs), ctypes.byref(local),
+                            ctypes.byref(smem))
+            check(rc == 0, f"{name} attributes: {rc}")
+            print(f"kernel {name} {dtype}: {regs.value} registers a thread, "
+                  f"{local.value} local (spill) bytes a thread, {smem.value} "
+                  f"bytes of shared memory a CTA", flush=True)
+            check(dtype != "bfloat16" or local.value == 0,
+                  f"{name} bf16 spills to local memory")
+    print(f"kernel K1/K2 at ViT-L's width (D {VITL_DIM}, {VITL_HEADS} heads "
+          f"of {VITL_DIM // VITL_HEADS}) run the hd {HD} instantiations above",
+          flush=True)
+
     rows = phase_kernels(ca, smi)
+    rows.update(phase_layer_norm(smi))
     serve_counts, _ = phase_slice(ca, smi)
     torch.cuda.empty_cache()
     train_counts, ref = phase_train(ca, smi)
@@ -2720,6 +3272,8 @@ def main() -> None:
         sc_counts = phase_oscc_pnr(ca, smi, Path(tree.name) / "ego4d")
         torch.cuda.empty_cache()
         em_counts = phase_extract(ca, smi, Path(tree.name) / "ego4d")
+        torch.cuda.empty_cache()
+        vitl_counts = phase_vitl(ca, smi, Path(tree.name))
     finally:
         tree.cleanup()
 
@@ -2737,16 +3291,18 @@ def main() -> None:
                                      "ddp_world1": ddp_counts[name],
                                      "finetune16": ft_counts[name],
                                      "oscc_pnr16": sc_counts[name],
-                                     "extract": em_counts[name]},
+                                     "extract": em_counts[name],
+                                     "vitl_cli": vitl_counts[name]},
                 **rows[name]}
-               for name, replaces in KERNELS.items()]
+               for name, replaces in {**KERNELS, **LN_KERNELS}.items()]
     kernels += [{"name": name, "route": "cuda", **sources(name),
                  "replaces": replaces, "launches": hs_counts[name],
                  "launches_by_path": {"head_split_op": hs_counts[name],
                                       "train_cli": cli_counts[name],
                                       "finetune16": ft_counts[name],
                                       "oscc_pnr16": sc_counts[name],
-                                      "extract": em_counts[name]},
+                                      "extract": em_counts[name],
+                                      "vitl_cli": vitl_counts[name]},
                  **rows[name]}
                 for name, replaces in HS_KERNELS.items()]
     print(smi)

@@ -20,8 +20,8 @@ One code path serves NCCL and gloo, on CPU and CUDA tensors:
 ``dist.all_gather`` into a list and ``dist.all_reduce`` (no warning in
 either torch the port runs on; ``all_gather_into_tensor`` warns in newer
 ones).  Without a process group, or at world 1, the gather is the
-identity.  The ring similarity (``chunked_global_similarity``) is still
-to port (``ROADMAP.md``, Queue A, A12).
+identity.  The ring similarity (``chunked_global_similarity``) is
+``objectives/ring.py``.
 """
 
 from __future__ import annotations

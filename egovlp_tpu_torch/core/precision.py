@@ -16,14 +16,21 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: "torch.Tensor | None") -> torch.Tensor:
+    """``x @ weight.T + bias`` with the parameters cast to x's dtype (flax
+    ``Dense(dtype=...)`` semantics): the product is rounded to the
+    activation dtype, then the bias is added in it."""
+    y = F.linear(x, weight.to(x.dtype))
+    return y if bias is None else y + bias.to(x.dtype)
+
+
 class Linear(nn.Linear):
-    """``nn.Linear`` whose float32 parameters are cast to the activation
-    dtype for the matmul (flax ``Dense(dtype=...)`` semantics): the product
-    is rounded to the activation dtype, then the bias is added in it."""
+    """``nn.Linear`` computing ``linear``: float32 parameters, the matmul
+    and the bias add in the activation dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, self.weight.to(x.dtype))
-        return y if self.bias is None else y + self.bias.to(x.dtype)
+        return linear(x, self.weight, self.bias)
 
 
 @functools.cache

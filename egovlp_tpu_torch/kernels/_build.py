@@ -24,7 +24,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "egovlp_kern
 SOURCES = ("space_attention_fwd.cu", "time_attention_fwd.cu",
            "space_attention_bwd.cu", "time_attention_bwd.cu",
            "grouped_attention_fwd.cu", "grouped_attention_bwd.cu",
-           "time_attention_hs_fwd.cu", "time_attention_hs_bwd.cu")
+           "time_attention_hs_fwd.cu", "time_attention_hs_bwd.cu",
+           "layer_norm_fwd.cu", "layer_norm_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -38,10 +39,16 @@ _HS_FWD = ([_P] * 6 + [_I] * 4 + [_I, _I, _P], _I)
 _HS_BWD = ([_P] * 11 + [_I] * 4 + [_I, _I, _P], _I)
 _K5_FWD = ([_P] * 6 + [_I] * 5 + [_I, _I, _P], _I)
 _K5_BWD = ([_P] * 11 + [_I] * 5 + [_I, _I, _P], _I)
+# LayerNorm (K3): x, scale, bias, y, mu, rstd; rows, D, eps / x, dy, scale,
+# mu, rstd, dx, part; rows, D
+_LN_FWD = ([_P] * 6 + [_I, _I, ctypes.c_float, _I, _I, _P], _I)
+_LN_BWD = ([_P] * 7 + [_I] * 4 + [_P], _I)
 # (L, hd) -> registers, local bytes and shared memory of a bf16
 # tensor-core kernel; (F, dtype) -> the same of a K2 or K5 streaming
 # instantiation
 _ATTRIBUTES = ([_I, _I] + [ctypes.POINTER(_I)] * 3, _I)
+# dtype -> the same of a K3 kernel
+_LN_ATTRIBUTES = ([_I] + [ctypes.POINTER(_I)] * 3, _I)
 _SIGNATURES = {
     "egovlp_space_attention_fwd": _FWD,
     "egovlp_time_attention_fwd": _FWD,
@@ -59,6 +66,10 @@ _SIGNATURES = {
     "egovlp_grouped_attention_fwd_attributes": _ATTRIBUTES,
     "egovlp_space_attention_bwd_attributes": _ATTRIBUTES,
     "egovlp_grouped_attention_bwd_attributes": _ATTRIBUTES,
+    "egovlp_layer_norm_fwd": _LN_FWD,
+    "egovlp_layer_norm_bwd": _LN_BWD,
+    "egovlp_layer_norm_fwd_attributes": _LN_ATTRIBUTES,
+    "egovlp_layer_norm_bwd_attributes": _LN_ATTRIBUTES,
     "egovlp_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -54,7 +54,9 @@ LN2 = 0.6931471805599453
 launches = {"space_attention_fwd": 0, "time_attention_fwd": 0,
             "space_attention_bwd": 0, "time_attention_bwd": 0,
             "grouped_attention_fwd": 0, "grouped_attention_bwd": 0,
-            "time_attention_hs_fwd": 0, "time_attention_hs_bwd": 0}
+            "time_attention_hs_fwd": 0, "time_attention_hs_bwd": 0,
+            # K3, the LayerNorm kernels of ``kernels/fused_ln.py``
+            "layer_norm_fwd": 0, "layer_norm_bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

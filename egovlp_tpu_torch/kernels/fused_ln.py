@@ -1,10 +1,24 @@
-"""LayerNorm with the JAX package's exact forward formula.
+"""LayerNorm with the JAX package's formula and its memory-lean VJP (K3).
 
-Counterpart of ``egovlp_tpu/kernels/fused_ln.py:42`` (plain jnp there, not
-a Pallas kernel; forward only here).  ``F.layer_norm`` computes the
-variance another way, so it is not used: statistics are float32, the
-variance is ``max(E[x^2] - E[x]^2, 0)``, eps sits inside the rsqrt, and
-the output ``(x - mu) * (rstd * scale) + bias`` is cast to the input dtype.
+Counterpart of ``egovlp_tpu/kernels/fused_ln.py`` (:41-82; plain jnp
+there, not a Pallas kernel).  ``F.layer_norm`` computes the variance
+another way, so it is not used: statistics are float32, the variance is
+``max(E[x^2] - E[x]^2, 0)``, eps sits inside the rsqrt, and the output
+``(x - mu) * (rstd * scale) + bias`` is cast to the input dtype.
+
+The autograd Function ``LayerNorm`` saves only ``x``, ``scale`` and the
+float32 row statistics ``mu``, ``rstd`` (``[..., 1]``), and its backward
+is JAX's one pass (:67-79): with ``x_hat = (x - mu) * rstd`` and ``g = dy
+* scale``, ``dx = rstd * (g - mean(g) - x_hat * mean(g * x_hat))`` cast to
+x's dtype, ``dscale = sum_rows(dy * x_hat)`` and ``dbias = sum_rows(dy)``
+in float32, cast to the parameters' dtype.  On a CUDA tensor the forward
+and the backward are one hand-written kernel each, K3-fwd
+(``csrc/layer_norm_fwd.cu``) and K3-bwd (``csrc/layer_norm_bwd.cu``,
+which writes each block's float32 share of dscale and dbias, added here),
+counted in ``cuda_attention.launches``; on a CPU tensor their plain twins
+below.  The kernels take rows of D a multiple of 16 bytes' values (8 at
+bf16, 4 at float32; the backward up to 1024), 16-byte aligned, float32
+parameters; any other CUDA input raises.
 """
 
 from __future__ import annotations
@@ -12,17 +26,119 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from egovlp_tpu_torch.kernels.cuda_attention import _DTYPE_CODES, _launch
 
-def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor,
-                     bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis; returns ``x.dtype``."""
+# the widest row K3-bwd holds, and the rows of one of its blocks (one row
+# of its partial sums): ``kMaxD``, ``kBwdRowsPerBlock`` in
+# ``csrc/layer_norm.cuh``
+MAX_BWD_DIM = 1024
+BWD_ROWS_PER_BLOCK = 32
+
+
+def _stats_shape(x):
+    return (*x.shape[:-1], 1)
+
+
+def layer_norm_fwd_plain(x, scale, bias, eps: float):
+    """Plain PyTorch K3-fwd: ``(y in x.dtype, mu, rstd)``, the statistics
+    float32 ``[..., 1]``."""
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu,
                       min=0.0)
     rstd = torch.rsqrt(var + eps)
     y = (xf - mu) * (rstd * scale.float()) + bias.float()
-    return y.to(x.dtype)
+    return y.to(x.dtype), mu, rstd
+
+
+def layer_norm_bwd_plain(x, scale, mu, rstd, dy):
+    """Plain PyTorch K3-bwd: ``(dx in x.dtype, dscale, dbias)``, the
+    parameter grads summed over every row in float32 and cast to
+    ``scale.dtype``."""
+    xf, dyf = x.float(), dy.float()
+    xhat = (xf - mu) * rstd
+    g = dyf * scale.float()
+    m1 = g.mean(dim=-1, keepdim=True)
+    m2 = (g * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (g - m1 - xhat * m2)).to(x.dtype)
+    rows = tuple(range(dy.dim() - 1))
+    dscale = (dyf * xhat).sum(dim=rows).to(scale.dtype)
+    dbias = dyf.sum(dim=rows).to(scale.dtype)
+    return dx, dscale, dbias
+
+
+def _check_cuda(x, params, bwd: bool) -> None:
+    """What the kernels take (see the module notes), or raise."""
+    D = x.shape[-1]
+    if x.dtype not in _DTYPE_CODES or any(p.dtype != torch.float32
+                                          for p in params):
+        raise TypeError(f"LayerNorm kernels take float32 or bfloat16 rows and "
+                        f"float32 parameters, got {x.dtype}, "
+                        f"{[p.dtype for p in params]}")
+    if any(p.shape != (D,) or p.device != x.device for p in params):
+        raise ValueError(f"LayerNorm parameters must be [{D}] on {x.device}")
+    slice_ = 16 // x.element_size()
+    if D % slice_ or (bwd and D > MAX_BWD_DIM):
+        raise ValueError(f"LayerNorm kernels take D a multiple of {slice_}"
+                         f"{f' up to {MAX_BWD_DIM}' if bwd else ''}, got {D}")
+
+
+def layer_norm_fwd(x, scale, bias, eps: float):
+    """K3-fwd: ``(y, mu, rstd)`` as ``layer_norm_fwd_plain``; ``x``
+    contiguous."""
+    if x.device.type == "cpu":
+        return layer_norm_fwd_plain(x, scale, bias, eps)
+    _check_cuda(x, (scale, bias), bwd=False)
+    D = x.shape[-1]
+    rows = x.numel() // D
+    y = torch.empty_like(x)
+    stats = torch.empty((2, *_stats_shape(x)), device=x.device,
+                        dtype=torch.float32)
+    _launch("layer_norm_fwd", (x, scale, bias), (y, stats[0], stats[1]),
+            (rows, D, eps))
+    return y, stats[0], stats[1]
+
+
+def layer_norm_bwd(x, scale, mu, rstd, dy):
+    """K3-bwd: ``(dx, dscale, dbias)`` as ``layer_norm_bwd_plain``; the
+    kernel writes each block's float32 share of dscale and dbias, summed
+    here over the blocks."""
+    if x.device.type == "cpu":
+        return layer_norm_bwd_plain(x, scale, mu, rstd, dy)
+    _check_cuda(x, (scale,), bwd=True)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} is not x's "
+                         f"{tuple(x.shape)} {x.dtype}")
+    D = x.shape[-1]
+    rows = x.numel() // D
+    blocks = -(-rows // BWD_ROWS_PER_BLOCK)
+    dx = torch.empty_like(x)
+    part = torch.empty((2, blocks, D), device=x.device, dtype=torch.float32)
+    _launch("layer_norm_bwd", (x, dy, scale, mu, rstd), (dx, part),
+            (rows, D))
+    dscale, dbias = part.sum(dim=1).to(scale.dtype).unbind(0)
+    return dx, dscale, dbias
+
+
+class LayerNorm(torch.autograd.Function):
+    """K3: ``apply(x, scale, bias, eps)``; saves x, scale, mu and rstd."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        x = x.contiguous()
+        y, mu, rstd = layer_norm_fwd(x, scale, bias, eps)
+        ctx.save_for_backward(x, scale, mu, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*layer_norm_bwd(*ctx.saved_tensors, dy.contiguous()), None)
+
+
+def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis; returns ``x.dtype``."""
+    return LayerNorm.apply(x, scale, bias, eps)
 
 
 class FusedLayerNorm(nn.Module):

@@ -32,8 +32,10 @@ Counterpart of ``egovlp_tpu/train/recipes.py`` for the ``egoclip``,
   config's batch size is the process's (the reference's per-GPU
   convention): the global batch is world size times it, and an epoch is
   the per-rank loader's length.  Tensor, sequence and ZeRO parallelism
-  raise (``ROADMAP.md``, Queue A), as does a fine-tune config with a
-  ranking visualizer (``visualizer.type``; A12); ``nlq`` / ``mq`` train
+  (``mesh.model`` > 1, ``zero``, ``dcn_data`` > 1) raise (``ROADMAP.md``,
+  Queue A, A13), as does a fine-tune config with a ranking visualizer
+  (``visualizer.type``; A12); ``mesh.sequence_parallel`` at ``model`` 1
+  logs JAX's warning and trains (:158-163); ``nlq`` / ``mq`` train
   nothing and raise, naming ``cli.extract``.
 """
 
@@ -180,8 +182,8 @@ def check_ported(config) -> None:
             f"visualizer.type={vis!r}: the ranking report is not ported "
             "(ROADMAP.md, Queue A, A12)")
     mesh = config.get("mesh") or {}
-    if (int(mesh.get("model", 1)) > 1 or mesh.get("sequence_parallel")
-            or mesh.get("zero") or int(mesh.get("dcn_data", 1)) > 1):
+    if (int(mesh.get("model", 1)) > 1 or mesh.get("zero")
+            or int(mesh.get("dcn_data", 1)) > 1):
         raise NotImplementedError(
             f"mesh {mesh}: tensor, sequence and ZeRO parallelism are not "
             "ported (ROADMAP.md, Queue A, A13)")
@@ -240,6 +242,11 @@ def run_task(config, resume: Optional[str] = None,
     config = config if isinstance(config, Config) else Config(config)
     logger = setup_logging()
     check_ported(config)
+    if (config.get("mesh") or {}).get("sequence_parallel"):
+        # as JAX recipes.py:158-163: a mesh without a model axis runs on
+        logger.warning(
+            "mesh.sequence_parallel is set but the mesh has no model axis "
+            "(model=1) — sequence parallelism is OFF; set mesh.model >= 2")
     device = resolve_device(device)
     task = infer_task(config)
     rank, world = process_shard()

@@ -22,6 +22,13 @@ no counterpart: the model and the optimizer are the state.
   optax does, scales the stored moment by b1 rounded to the moment's
   dtype.  ``torch.optim.AdamW`` is
   not used: its eps placement is the optax one only.
+
+  ``max_grad_norm`` (:149, :178-179) clips the gradients by their global
+  norm before the update, as ``optax.clip_by_global_norm`` chained in
+  front: with ``n = ||g||`` over every parameter, each gradient becomes
+  ``(g / n) * max_grad_norm`` when ``n >= max_grad_norm`` and stays as it
+  is otherwise (no host sync: the choice is a ``torch.where``).  As in
+  the JAX package, ``run_task`` reads no config key for it.
 """
 
 from __future__ import annotations
@@ -62,7 +69,8 @@ class AdamW(torch.optim.Optimizer):
 
     def __init__(self, params, schedule: Callable[[int], float],
                  rule: str = "optax", weight_decay: float = 0.0,
-                 mu_dtype: Optional[str] = None):
+                 mu_dtype: Optional[str] = None,
+                 max_grad_norm: Optional[float] = None):
         if rule not in ("optax", "reference"):
             raise ValueError(f"AdamW rule {rule!r}: expected 'optax' or "
                              "'reference'")
@@ -72,20 +80,26 @@ class AdamW(torch.optim.Optimizer):
         super().__init__(params, dict(rule=rule, weight_decay=weight_decay,
                                       mu_dtype=mu_dtype, count=0))
         self.schedule = schedule
+        self.max_grad_norm = max_grad_norm
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("AdamW.step takes no closure")
-        for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            if params:
-                self._update(group, params)
+        params = [[p for p in group["params"] if p.grad is not None]
+                  for group in self.param_groups]
+        grads = [[p.grad.float() for p in ps] for ps in params]
+        if self.max_grad_norm:
+            grads = clip_by_global_norm(grads, self.max_grad_norm)
+        for group, ps, gs in zip(self.param_groups, params, grads):
+            if ps:
+                self._update(group, ps, gs)
             group["count"] += 1
 
-    def _update(self, group, params):
-        """One step over ``params`` with multi-tensor (``_foreach``) ops:
-        a few launches per step instead of a dozen per parameter."""
+    def _update(self, group, params, grads):
+        """One step over ``params`` with their float32 ``grads``, in
+        multi-tensor (``_foreach``) ops: a few launches per step instead of
+        a dozen per parameter."""
         count = group["count"]
         lr = _f32(self.schedule(count))
         b1, b2, eps = B1, B2, EPS
@@ -101,7 +115,6 @@ class AdamW(torch.optim.Optimizer):
                 st["nu"] = torch.zeros_like(p, dtype=torch.float32)
         mus = [self.state[p]["mu"] for p in params]
         nus = [self.state[p]["nu"] for p in params]
-        grads = [p.grad.float() for p in params]
         m = [mu.float() for mu in mus]
         if group["rule"] == "optax":
             # optax's update_moment multiplies the moment by a weakly typed
@@ -138,18 +151,34 @@ class AdamW(torch.optim.Optimizer):
         torch._foreach_copy_(mus, m)
 
 
+def clip_by_global_norm(grads, max_norm: float):
+    """``optax.clip_by_global_norm`` on lists of float32 gradients: all
+    scaled by ``max_norm / n`` (as ``(g / n) * max_norm``) when their
+    global norm ``n`` is at least ``max_norm``, else unchanged."""
+    flat = [g for gs in grads for g in gs]
+    if not flat:
+        return grads
+    norm = torch.stack(torch._foreach_norm(flat)).norm()
+    keep = norm < max_norm
+    return [[torch.where(keep, g, (g / norm) * max_norm) for g in gs]
+            for gs in grads]
+
+
 def make_optimizer(model: torch.nn.Module, base_lr: float = 3e-5,
                    milestones: Sequence[int] = (60, 80),
                    steps_per_epoch: int = 1, weight_decay: float = 0.0,
+                   max_grad_norm: Optional[float] = None,
                    gamma: float = 0.1, mu_dtype: Optional[str] = None,
                    variant: str = "optax"
                    ) -> Tuple[AdamW, Callable[[int], float]]:
     """AdamW over the model's parameters and its step-LR schedule.
-    ``variant``: 'optax', 'fused' (both the optax rule) or 'reference'."""
+    ``variant``: 'optax', 'fused' (both the optax rule) or 'reference';
+    ``max_grad_norm``: the global-norm clip before the update."""
     if variant not in RULES:
         raise ValueError(f"optimizer variant {variant!r}: expected 'optax', "
                          "'reference', or 'fused'")
     schedule = make_step_lr(base_lr, milestones, steps_per_epoch, gamma)
     opt = AdamW(model.parameters(), schedule, rule=RULES[variant],
-                weight_decay=weight_decay, mu_dtype=mu_dtype)
+                weight_decay=weight_decay, mu_dtype=mu_dtype,
+                max_grad_norm=max_grad_norm)
     return opt, schedule

@@ -3,15 +3,21 @@ CharadesEgo and Ego4D OSCC / PNR fine-tunes, and the evaluation
 embedding steps.
 
 EgoClip: counterpart of ``make_egoclip_train_step``
-(``egovlp_tpu/train/steps.py`` :89-188) on its ``global_sim='gather'``,
-``n_micro=1`` path: scene negatives concatenated to the batch
-(:116-122), the train transform drawn
-from the step's ``torch.Generator``, the dual-encoder forward, the cosine
-similarity matrix, EgoNCE with ``sim_matrix(verb_vec, verb_vec)`` /
+(``egovlp_tpu/train/steps.py`` :89-188): scene negatives concatenated to
+the batch (:116-122), the train transform drawn from the step's
+``torch.Generator``, the dual-encoder forward, the cosine similarity
+matrix, EgoNCE with ``sim_matrix(verb_vec, verb_vec)`` /
 ``sim_matrix(noun_vec, noun_vec)`` masks (:177-183) or InfoNCE, backward
 and the optimizer step.  The step returns the loss as a device tensor and
-never syncs with the host.  ``'ring'`` similarity and gradient
-accumulation are still to port (ROADMAP.md, Queue A, A12).
+never syncs with the host.  ``n_micro > 1`` (``trainer.grad_accum``) takes
+the gradient by GradCache (``train/grad_cache.py``, :127-151): the
+transformed batch (negatives included) is split into ``n_micro``
+micro-batches, the loss taken on the full batch's embeddings with the
+full batch's verb and noun vectors.  ``global_sim='ring'`` builds each
+rank's rows of the global similarity on a ring of ranks
+(``objectives/ring.py``); with no process group it is the gather path, as
+JAX falls back without a data mesh (:98).  Ring with ``n_micro > 1``
+raises, as in JAX (:105-107).
 
 In a multi-process run (one process per GPU, the model wrapped in
 ``DistributedDataParallel``) the step computes the JAX step's global-batch
@@ -50,7 +56,7 @@ import numpy as np
 import torch
 
 from egovlp_tpu_torch.core.collectives import all_gather_rows
-from egovlp_tpu_torch.core.dist import process_shard
+from egovlp_tpu_torch.core.dist import in_process_group, process_shard
 from egovlp_tpu_torch.data.transforms import (
     eval_resize,
     resized_crop_flip,
@@ -60,6 +66,8 @@ from egovlp_tpu_torch.models.dual_encoder import sim_matrix
 from egovlp_tpu_torch.objectives.classification import cross_entropy, nll
 from egovlp_tpu_torch.objectives.contrastive import egonce, info_nce
 from egovlp_tpu_torch.objectives.ranking import adaptive_max_margin, max_margin
+from egovlp_tpu_torch.objectives.ring import egoclip_ring_loss
+from egovlp_tpu_torch.train.grad_cache import grad_cache_value_and_grad
 
 _NEG_KEYS = (("frames", "frames_neg"), ("text_ids", "text_neg_ids"),
              ("text_mask", "text_neg_mask"), ("noun_vec", "noun_vec_neg"),
@@ -103,15 +111,15 @@ def make_egoclip_train_step(loss_type: str = "EgoNCE", input_res: int = 224,
     ``text_mask`` ``[B, S]``, ``noun_vec`` / ``verb_vec``, and the ``_neg``
     twins when scene negatives are on).  In a multi-process run ``model``
     is the ``DistributedDataParallel`` wrapper and ``batch`` this rank's
-    part of the global batch."""
-    if global_sim != "gather":
-        raise NotImplementedError(
-            f"global_sim={global_sim!r}: only 'gather' is ported; the ring "
-            "similarity is still to port (ROADMAP.md, Queue A, A12)")
-    if n_micro != 1:
-        raise NotImplementedError(
-            "grad_accum > 1 (GradCache) is still to port (ROADMAP.md, Queue "
-            "A, A12)")
+    part of the global batch.  ``global_sim``: 'gather' or 'ring';
+    ``n_micro``: GradCache micro-batches (the doubled batch must divide
+    by it)."""
+    if global_sim not in ("gather", "ring"):
+        raise ValueError(f"global_sim={global_sim!r}: expected 'gather' or "
+                         "'ring'")
+    if n_micro > 1 and global_sim == "ring":
+        raise ValueError("grad_accum composes with global_sim='gather' "
+                         "only (the ring loss already bounds memory)")
 
     def step(model, optimizer, batch: Dict[str, torch.Tensor],
              generator: torch.Generator) -> torch.Tensor:
@@ -123,33 +131,54 @@ def make_egoclip_train_step(loss_type: str = "EgoNCE", input_res: int = 224,
             parts = {k: torch.cat([batch[k], batch[n]], dim=0)
                      for k, n in _NEG_KEYS}
         frames = parts["frames"]
+        b = batch["frames"].shape[0]
         boxes, flips = sample_crop_boxes(generator, world * frames.shape[0],
                                          frames.shape[2])
         if world > 1:
-            rows = _global_rows(batch["frames"].shape[0], rank, world,
-                               negatives, boxes.device)
+            rows = _global_rows(b, rank, world, negatives, boxes.device)
             boxes, flips = boxes[rows], flips[rows]
         video = resized_crop_flip(frames, boxes, flips, out_size=input_res)
-
-        model.train()
-        t, v = model(video, parts["text_ids"], parts["text_mask"],
-                     generator=generator)
         verb_vec, noun_vec = parts["verb_vec"], parts["noun_vec"]
-        if world > 1:
-            # gathered rows come rank-major; put them in global order
-            order = torch.argsort(torch.cat([
-                _global_rows(batch["frames"].shape[0], r, world, negatives,
-                            t.device) for r in range(world)]))
-            t, v, verb_vec, noun_vec = (all_gather_rows(x)[order] for x in
-                                        (t, v, verb_vec, noun_vec))
-        sim = sim_matrix(t, v)
-        if loss_type == "EgoNCE":
-            loss = egonce(sim, sim_matrix(verb_vec, verb_vec),
-                          sim_matrix(noun_vec, noun_vec),
-                          temperature, noun=noun, verb=verb)
-        else:
-            loss = info_nce(sim, temperature)
-        return _update(optimizer, loss)
+        model.train()
+
+        def loss_of(t, v):
+            if global_sim == "ring" and in_process_group():
+                rows = torch.stack([_global_rows(b, r, world, negatives,
+                                                 t.device)
+                                    for r in range(world)])
+                return egoclip_ring_loss(
+                    t, v, noun_vec, verb_vec, rows, loss_type=loss_type,
+                    temperature=temperature, noun=noun, verb=verb)
+            nv, vv = noun_vec, verb_vec
+            if world > 1:
+                # gathered rows come rank-major; put them in global order
+                order = torch.argsort(torch.cat([
+                    _global_rows(b, r, world, negatives, t.device)
+                    for r in range(world)]))
+                t, v, vv, nv = (all_gather_rows(x)[order] for x in
+                                (t, v, vv, nv))
+            sim = sim_matrix(t, v)
+            if loss_type == "EgoNCE":
+                return egonce(sim, sim_matrix(vv, vv), sim_matrix(nv, nv),
+                              temperature, noun=noun, verb=verb)
+            return info_nce(sim, temperature)
+
+        if n_micro == 1:
+            t, v = model(video, parts["text_ids"], parts["text_mask"],
+                         generator=generator)
+            return _update(optimizer, loss_of(t, v))
+
+        def embed(mb):
+            return model(mb["video"], mb["ids"], mb["mask"],
+                         generator=generator)
+
+        optimizer.zero_grad(set_to_none=True)
+        loss = grad_cache_value_and_grad(embed, loss_of, n_micro)(
+            {"video": video, "ids": parts["text_ids"],
+             "mask": parts["text_mask"]},
+            generator, getattr(model, "no_sync", None))
+        optimizer.step()
+        return loss
 
     return step
 

@@ -528,3 +528,95 @@ def test_cuda_time_hs_bwd_is_deterministic(cuda_device, dtype, f):
     torch.cuda.synchronize()
     for i, (a, b) in enumerate(zip(first, second)):
         assert torch.equal(a, b), i
+
+
+# --------------------------------------------------------------------------
+# K3: LayerNorm forward and backward (kernels/fused_ln.py)
+# --------------------------------------------------------------------------
+
+def _ln_inputs(device, dtype, rows, D, seed=0):
+    """x, scale, bias, dy: x and dy ``[rows, D]`` in ``dtype`` (x off
+    zero mean), the parameters float32 ``[D]``."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, D)) * 2 + 0.5
+    dy = rng.normal(size=(rows, D))
+    scale, bias = 1 + 0.3 * rng.normal(size=D), rng.normal(size=D)
+    return (torch.from_numpy(x).to(device, dtype),
+            torch.from_numpy(scale).to(device, torch.float32),
+            torch.from_numpy(bias).to(device, torch.float32),
+            torch.from_numpy(dy).to(device, dtype))
+
+
+def _rel(got, want):
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-3)])
+@pytest.mark.parametrize("rows,D", [(100, 768), (33, 1024), (7, 64),
+                                    (1, 24), (300, 1024)])
+def test_cuda_layer_norm_matches_plain(cuda_device, dtype, rel, rows, D):
+    """float32: the same formula, sums in another order (1e-5); bf16: one
+    rounding of each output from float32 values that agree to ~1e-6
+    (2e-3); dscale / dbias are float32 sums (1e-5 at both)."""
+    from egovlp_tpu_torch.kernels import fused_ln
+
+    x, scale, bias, dy = _ln_inputs(cuda_device, dtype, rows, D, seed=rows)
+    ca.reset_launch_counts()
+    y, mu, rstd = fused_ln.layer_norm_fwd(x, scale, bias, 1e-6)
+    grads = fused_ln.layer_norm_bwd(x, scale, mu, rstd, dy)
+    torch.cuda.synchronize()
+    assert ca.launches["layer_norm_fwd"] == ca.launches["layer_norm_bwd"] == 1
+    want_y, want_mu, want_rstd = fused_ln.layer_norm_fwd_plain(x, scale, bias,
+                                                               1e-6)
+    want = fused_ln.layer_norm_bwd_plain(x, scale, want_mu, want_rstd, dy)
+    assert y.dtype == dtype and mu.shape == (rows, 1)
+    assert _rel(mu, want_mu) <= 1e-5 and _rel(rstd, want_rstd) <= 1e-5
+    assert _rel(y, want_y) <= rel
+    assert _rel(grads[0], want[0]) <= rel
+    assert _rel(grads[1], want[1]) <= 1e-5 and _rel(grads[2], want[2]) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_bwd_is_deterministic(cuda_device):
+    from egovlp_tpu_torch.kernels import fused_ln
+
+    x, scale, bias, dy = _ln_inputs(cuda_device, torch.bfloat16, 5000, 1024)
+    _, mu, rstd = fused_ln.layer_norm_fwd(x, scale, bias, 1e-6)
+    first = fused_ln.layer_norm_bwd(x, scale, mu, rstd, dy)
+    second = fused_ln.layer_norm_bwd(x, scale, mu, rstd, dy)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_function_matches_autograd_of_plain(cuda_device):
+    from egovlp_tpu_torch.kernels import fused_ln
+
+    x, scale, bias, dy = _ln_inputs(cuda_device, torch.float32, 64, 768)
+    leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    got = torch.autograd.grad(fused_ln.fused_layer_norm(*leaves), leaves, dy)
+    plain = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    want = torch.autograd.grad(
+        fused_ln.layer_norm_fwd_plain(*plain, 1e-6)[0], plain, dy)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,bwd", [
+    (torch.bfloat16, 20, False), (torch.float32, 22, False),  # partial slices
+    (torch.bfloat16, 1032, True), (torch.float32, 2048, True)])  # too wide
+def test_cuda_layer_norm_refuses_shapes(cuda_device, dtype, D, bwd):
+    from egovlp_tpu_torch.kernels import fused_ln
+
+    x, scale, bias, dy = _ln_inputs(cuda_device, dtype, 4, D)
+    with pytest.raises(ValueError, match="multiple"):
+        if bwd:
+            stats = torch.zeros(2, 4, 1, device=cuda_device)
+            fused_ln.layer_norm_bwd(x, scale, stats[0], stats[1], dy)
+        else:
+            fused_ln.layer_norm_fwd(x, scale, bias, 1e-6)

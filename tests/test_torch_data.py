@@ -105,7 +105,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "egovlp_tpu_torch.evals.features",
             "egovlp_tpu_torch.data.pipeline", "egovlp_tpu_torch.cli.train",
             "egovlp_tpu_torch.cli.eval",
-            "egovlp_tpu_torch.cli.extract"} <= set(modules)
+            "egovlp_tpu_torch.cli.extract",
+            "egovlp_tpu_torch.train.grad_cache",
+            "egovlp_tpu_torch.objectives.ring"} <= set(modules)
     # nor pandas, nor cv2: the EgoClip, EPIC and Charades csvs are read
     # with the standard library, and cv2 is imported only where a video or
     # a frame (the EPIC and Ego4D JPEGs too) is decoded with it

@@ -332,8 +332,8 @@ def test_cli_train_eval_only_preset_writes_no_checkpoint(tiny_run,
 
 @pytest.mark.parametrize("key,value,match", [
     ("task", "nlq", "cli.extract"), ("task", "mq", "cli.extract"),
-    ("mesh", {"model": 2}, "A13"), ("mesh", {"sequence_parallel": True},
-                                    "A13"),
+    ("mesh", {"model": 2}, "A13"),
+    ("mesh", {"model": 2, "sequence_parallel": True}, "A13"),
     ("mesh", {"zero": 1}, "A13"), ("mesh", {"data": 2}, "world size is 1"),
     ("n_devices", 2, "world size is 1")])
 def test_unported_keys_raise(key, value, match, tmp_path):

@@ -15,13 +15,19 @@ only torch and the port (no jax), joins the process group with
   holds (``model.json``: the widths, the head's width ``proj`` (8 unless
   given), the schedule and the step, EgoClip unless its ``step`` names
   the EPIC max-margin step and its loss, or the video-only ``oscc`` /
-  ``pnr`` step; ``weights.pt``; ``batch.pt``: the global batch and its
+  ``pnr`` step; an EgoClip step takes ``loss_type``, ``global_sim`` and
+  ``n_micro`` from it when given; ``weights.pt``; ``batch.pt``: the global batch and its
   crop boxes), this rank's half of the batch, the model wrapped in
   ``DistributedDataParallel`` (``recipes.data_parallel``, video-only for
   oscc / pnr); writes the loss, every parameter's gradient before the
   optimizer (None where it got none) and the parameters after it to
   ``DIR/rank{r}.pt``; a video-only step's rank 0 also writes the trained
   model's checkpoint under ``DIR/ckpt`` through ``CheckpointManager``;
+* ``ring``: ``objectives.ring.egoclip_ring_loss`` on this rank's rows of
+  the global ``t``, ``v``, ``noun_vec``, ``verb_vec`` in ``DIR/ring.pt``
+  (with scene negatives: rows ``[pos_r; neg_r]``, ``steps._global_rows``;
+  its ``loss_type``), backward from it; writes the loss and the gradients
+  of this rank's ``t`` and ``v`` rows to ``DIR/rank{r}.pt``;
 * ``eval``: ``gather_eval`` / ``gather_arrays`` / ``gather_objects`` of
   this rank's rows of ``DIR/eval.pkl`` (``{'rows': [rank 0's, rank 1's],
   ...}``) and the EgoMCQ accuracies of the result, to ``DIR/rank{r}.pkl``.
@@ -117,13 +123,34 @@ def step(rank, world, out):
             loss_type=spec["loss_type"], input_res=spec["res"],
             margin=spec["margin"])
     else:
-        step_fn = steps.make_egoclip_train_step(input_res=spec["res"])
+        step_fn = steps.make_egoclip_train_step(
+            input_res=spec["res"], loss_type=spec.get("loss_type", "EgoNCE"),
+            global_sim=spec.get("global_sim", "gather"),
+            n_micro=spec.get("n_micro", 1))
     loss = step_fn(ddp, opt, local, torch.Generator())
     if video_only:
         from egovlp_tpu_torch.io.checkpoints import CheckpointManager
 
         CheckpointManager(str(out / "ckpt")).save_epoch(1, ddp, opt, 0.0)
     torch.save({"loss": loss, "grads": grads, "params": model.state_dict()},
+               out / f"rank{rank}.pt")
+
+
+def ring(rank, world, out):
+    from egovlp_tpu_torch.objectives.ring import egoclip_ring_loss
+    from egovlp_tpu_torch.train.steps import _global_rows
+
+    data = torch.load(out / "ring.pt")
+    b = len(data["t"]) // (2 * world)
+    rows = torch.stack([_global_rows(b, r, world, True)
+                        for r in range(world)])
+    mine = rows[rank]
+    t, v = (data[k][mine].clone().requires_grad_() for k in ("t", "v"))
+    loss = egoclip_ring_loss(t, v, data["noun_vec"][mine],
+                             data["verb_vec"][mine], rows,
+                             loss_type=data["loss_type"])
+    loss.backward()
+    torch.save({"loss": loss.detach(), "dt": t.grad, "dv": v.grad},
                out / f"rank{rank}.pt")
 
 
@@ -153,6 +180,7 @@ if __name__ == "__main__":
     mode, out = sys.argv[1], Path(sys.argv[2])
     torch.set_num_threads(1)
     rank, world = init_distributed("cpu")
-    {"gather": gather, "step": step, "eval": evaluate}[mode](rank, world, out)
+    {"gather": gather, "step": step, "ring": ring,
+     "eval": evaluate}[mode](rank, world, out)
     torch.distributed.destroy_process_group()
     print(f"{mode.upper()}_OK rank {rank} of {world}", flush=True)
