@@ -254,8 +254,30 @@ Phases, each of which passes or raises (any failure exits non-zero):
    in [0, 100]; prints each run's loop time, clips/s, Loader wait and peak
    memory.
 
-The last three lines are the ``nvidia-smi`` line, a JSON object with one
-entry per kernel, and ``{"ok": true, "device": {...}}``.
+12. AOT serving artifact (``phase_aot``): phase 4's model exported with
+   ``io/export.export_embedder`` at buckets 1, 4 and 16 on ``cuda`` (export
+   seconds, artifact bytes against the weights' bytes, which it must stay
+   under 5% of); a fresh process loads it with ``ExportedEmbedder`` and
+   embeds texts and 3 clips, and fails if any ``egovlp_tpu_torch.models``
+   module was imported; in this process the artifact's ``embed_texts`` /
+   ``embed_frames`` at every bucket and at 3 (padded to 4) must equal the
+   live ``Embedder``'s within 1e-6 (the same kernels on the same inputs),
+   K1-fwd and K2-fwd launch 12 times a video call, one bucket-16 video
+   call launches what the live call does, 17 clips raise naming the
+   bucket, and ``cli.serve --aot`` in a subprocess answers ``/embed_text``
+   with the live values; prints the artifact's and the live
+   ``embed_frames`` median ms per bucket (20 calls each, in turns), a
+   ``torch.profiler`` breakdown of 3 bucket-16 calls of each, and the
+   host cost of
+   the op registration (``op_host_costs``: K3-fwd at ``[32, 1024]`` and
+   K1-fwd at ``[16, 4, 196, 768]`` through the registered op, the launcher
+   and a ``torch.library.custom_op``).
+
+Phases 3, 3b and 3c also give the library call's own device time
+(``torch.profiler`` over all its kernels: ``library_device_ms``).  The
+last four lines are a JSON object of phase 12's numbers, the
+``nvidia-smi`` line, a JSON object with one entry per kernel, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -387,10 +409,32 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def interleaved_ms(a, b, iters: int = 20, warmup: int = 3) -> tuple:
+    """Median times of ``a()`` and ``b()`` (CUDA events), called in turns
+    (a, b, b, a, ...) so that a drift of the host reaches both alike."""
+    import torch
+
+    for _ in range(warmup):
+        a(), b()
+    times = ([], [])
+    for i in range(2 * iters):
+        k = (i + i // 2) % 2  # 0 1 1 0 0 1 1 0 ...
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        (a, b)[k]()
+        end.record()
+        end.synchronize()
+        times[k].append(start.elapsed_time(end))
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3,
+              library: bool = False) -> float:
     """The device time of the repository's own kernels that ``fn()``
     launches (``torch.profiler``: kernels in the ``egovlp`` namespace, not
-    PyTorch's), per call, mean over ``iters`` calls."""
+    PyTorch's), per call, mean over ``iters`` calls; with ``library``, of
+    every kernel it launches (a PyTorch call's)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -406,11 +450,13 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
                 fn()
             torch.cuda.synchronize()
         total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and "egovlp" in e.key)
+                    if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)
+                    and (library or "egovlp" in e.key))
         if total > 0:
             return total / 1e3 / iters
-    raise RuntimeError("three profiler sessions saw no kernel of the "
-                       "repository")
+    raise RuntimeError("three profiler sessions saw no kernel of "
+                       + ("the call" if library else "the repository"))
 
 
 def misaligned(t):
@@ -687,11 +733,13 @@ def phase_kernels(ca, smi: str) -> dict:
             return F.scaled_dot_product_attention(*lay[:3], scale=scale)
 
         t_lib = median_ms(sdpa)
+        t_lib_device = device_ms(sdpa, library=True)
         if bwd:
             def sdpa_grad():
                 return torch.autograd.grad(sdpa(), lay[:3], lay[3])
 
             t_lib = median_ms(sdpa_grad) - t_lib
+            t_lib_device = device_ms(sdpa_grad, library=True) - t_lib_device
         err = check_kernel(name, x, f"{label} f{f} n{n} (timed inputs)")
         if name in STREAMING and name in HS_KERNELS:
             body = body_name(ca, ca.time_hs_body(*x))
@@ -708,8 +756,8 @@ def phase_kernels(ca, smi: str) -> dict:
             del again
         print(f"time {name} bf16 {label} f{f} n{n}: kernel {t_kernel:.4f} ms "
               f"(device {t_device:.4f} ms), plain {t_plain:.4f} ms, library "
-              f"{t_lib:.4f} ms, bound {bound:.4f} ms ({bound_by}) [{smi}]",
-              flush=True)
+              f"{t_lib:.4f} ms (device {t_lib_device:.4f} ms), bound "
+              f"{bound:.4f} ms ({bound_by}) [{smi}]", flush=True)
         if name in REDESIGNED and (B, f, n) == TIMED:
             print(f"redesigned {name} bf16 {label} f{f} n{n}: "
                   f"{t_kernel:.4f} ms, device {t_device:.4f} ms (scalar "
@@ -720,7 +768,8 @@ def phase_kernels(ca, smi: str) -> dict:
                   f"[{smi}]", flush=True)
         del x, lay
         return {"ms": t_kernel, "device_ms": t_device, "plain_ms": t_plain,
-                "library_ms": t_lib, "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": t_lib, "library_device_ms": t_lib_device,
+                "bound_ms": bound, "bound_by": bound_by,
                 "max_abs_err": err, "dtype": "bfloat16", "shape": shape}
 
     rows = {name: time_kernel(name, *TIMED) for name in (*KERNELS,
@@ -855,31 +904,40 @@ def phase_layer_norm(smi: str) -> dict:
               f"{'give the same bits' if same else 'DIFFER'}", flush=True)
         check(same, "layer_norm_bwd is not deterministic")
         sc, bi = scale.to(x.dtype), bias.to(x.dtype)
-        lib_f = median_ms(lambda: F.layer_norm(x, (D,), sc, bi, 1e-6))
         leaves = [t.clone().requires_grad_() for t in (x, sc, bi)]
-        lib_b = median_ms(lambda: torch.autograd.grad(
-            F.layer_norm(leaves[0], (D,), *leaves[1:], 1e-6), leaves,
-            dy)) - lib_f
+
+        def lib_fwd():
+            return F.layer_norm(x, (D,), sc, bi, 1e-6)
+
+        def lib_grad():
+            return torch.autograd.grad(
+                F.layer_norm(leaves[0], (D,), *leaves[1:], 1e-6), leaves, dy)
+
+        lib_f, lib_f_device = median_ms(lib_fwd), device_ms(lib_fwd,
+                                                             library=True)
+        lib_b = median_ms(lib_grad) - lib_f
+        lib_b_device = device_ms(lib_grad, library=True) - lib_f_device
         calls = {
             "layer_norm_fwd": (
                 lambda: fused_ln.layer_norm_fwd(x, scale, bias, 1e-6),
                 lambda: fused_ln.layer_norm_fwd_plain(x, scale, bias, 1e-6),
-                lib_f, err_f),
+                lib_f, lib_f_device, err_f),
             "layer_norm_bwd": (
                 lambda: fused_ln.layer_norm_bwd(x, scale, mu, rstd, dy),
                 lambda: fused_ln.layer_norm_bwd_plain(x, scale, mu, rstd, dy),
-                lib_b, err_b)}
-        for name, (kernel, plain, t_lib, err) in calls.items():
+                lib_b, lib_b_device, err_b)}
+        for name, (kernel, plain, t_lib, t_lib_device, err) in calls.items():
             t_plain = median_ms(plain)
             t_kernel = median_ms(kernel)
             t_device = device_ms(kernel)
             bound, bound_by = ln_bound_ms(name, rows, D)
             print(f"time {name} bf16 [{rows}, {D}]: kernel {t_kernel:.4f} ms "
                   f"(device {t_device:.4f} ms), plain {t_plain:.4f} ms, "
-                  f"library {t_lib:.4f} ms, bound {bound:.4f} ms "
-                  f"({bound_by}) [{smi}]", flush=True)
+                  f"library {t_lib:.4f} ms (device {t_lib_device:.4f} ms), "
+                  f"bound {bound:.4f} ms ({bound_by}) [{smi}]", flush=True)
             row = {"ms": t_kernel, "device_ms": t_device, "plain_ms": t_plain,
-                   "library_ms": t_lib, "bound_ms": bound, "bound_by": bound_by,
+                   "library_ms": t_lib, "library_device_ms": t_lib_device,
+                   "bound_ms": bound, "bound_by": bound_by,
                    "max_abs_err": err, "dtype": "bfloat16",
                    "shape": [rows, D]}
             if name in out:
@@ -890,15 +948,16 @@ def phase_layer_norm(smi: str) -> dict:
     return out
 
 
-def phase_slice(ca, smi: str) -> tuple:
+def serving_setup(tmp: Path) -> tuple:
+    """The serving model of phases 4 and 12: ``configs/eval/egomcq.json`` at
+    full width in bf16 on seeded random weights, with a vocabulary in
+    ``tmp``; returns ``(config, model, tokenizer)``."""
     import torch
 
     from egovlp_tpu_torch import build
     from egovlp_tpu_torch.io.config import load_config
-    from egovlp_tpu_torch.serving import Embedder, serve
 
-    tmp = tempfile.TemporaryDirectory()
-    vocab = Path(tmp.name) / "vocab.txt"
+    vocab = tmp / "vocab.txt"
     vocab.write_text("\n".join(VOCAB))
     config = load_config(str(ROOT / "configs/eval/egomcq.json"))
     # non-zero time attention: with the reference's zero init every time
@@ -913,7 +972,15 @@ def phase_slice(ca, smi: str) -> tuple:
     check(cfg.video.embed_dim == DIM and cfg.video.depth == 12
           and cfg.text.n_layers == 6 and cfg.projection_dim == 256,
           f"not the full-width model: {cfg}")
-    tok = build.build_tokenizer(config, 30)
+    return config, model, build.build_tokenizer(config, 30)
+
+
+def phase_slice(ca, smi: str) -> tuple:
+    from egovlp_tpu_torch import build
+    from egovlp_tpu_torch.serving import Embedder, serve
+
+    tmp = tempfile.TemporaryDirectory()
+    config, model, tok = serving_setup(Path(tmp.name))
     emb = Embedder(model, tok, num_frames=4, input_res=224, pre_size=256)
     clips = np.random.default_rng(0).integers(
         0, 256, (16, 4, 256, 256, 3), dtype=np.uint8)
@@ -3182,6 +3249,280 @@ def phase_vitl(ca, smi: str, root: Path) -> dict:
     return first
 
 
+# ---- phase 12: the AOT serving artifact -------------------------------------
+
+AOT_BUCKETS = (1, 4, 16)
+AOT_TOL = 1e-6  # artifact vs live Embedder: the same kernels, same inputs
+# the fresh process of phase 12: loads the artifact with no model code,
+# embeds phase 12's texts and clips, and fails if any module of
+# egovlp_tpu_torch.models was imported
+AOT_LOADER = """
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from egovlp_tpu_torch.data.text import WordPieceTokenizer
+from egovlp_tpu_torch.io.export import ExportedEmbedder
+art, weights, vocab, clips, out = sys.argv[2:7]
+emb = ExportedEmbedder(art, torch.load(weights, weights_only=True),
+                       WordPieceTokenizer(vocab, max_length=30), device="cuda")
+np.savez(out, text=emb.embed_texts(json.loads(sys.argv[7])),
+         video=emb.embed_frames(np.load(clips)))
+models = sorted(m for m in sys.modules
+                if m.startswith("egovlp_tpu_torch.models"))
+print("aot loader: egovlp_tpu_torch.models modules", models, flush=True)
+sys.exit(1 if models else 0)
+"""
+
+
+def op_host_costs(smi: str) -> dict:
+    """Phase 12's host cost of the op registration: K3-fwd at ``[32,
+    1024]`` and K1-fwd at ``[16, 4, 196, 768]``, bf16, each called through
+    its registered op (``torch.ops.egovlp_torch``, the route of the
+    wrappers and the autograd Functions), through its launcher directly,
+    and through a ``torch.library.custom_op`` over the same launcher (the
+    registration not kept): event ms (median of 20) and host us a call
+    (mean of 200 calls enqueued back to back)."""
+    import torch
+
+    from egovlp_tpu_torch.kernels import cuda_attention as ca
+    from egovlp_tpu_torch.kernels import fused_ln
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(32, VITL_DIM, device="cuda", generator=g).bfloat16()
+    scale = torch.randn(VITL_DIM, device="cuda", generator=g)
+    bias = torch.randn(VITL_DIM, device="cuda", generator=g)
+    att = grid_inputs(*TIMED, torch.bfloat16, seed=12)
+
+    # the schemas written out: this module's postponed annotations are
+    # strings that custom_op cannot resolve inside a function
+    ln_custom = torch.library.custom_op(
+        "egovlp_smoke::layer_norm_fwd", fused_ln._fwd_cuda, mutates_args=(),
+        schema="(Tensor x, Tensor scale, Tensor bias, float eps) -> "
+               "(Tensor, Tensor)")
+    ln_custom.register_fake(fused_ln._fwd_fake)
+    k1_custom = torch.library.custom_op(
+        "egovlp_smoke::space_attention_fwd",
+        lambda *a: ca._fwd_cuda("space_attention_fwd", *a), mutates_args=(),
+        schema="(Tensor q, Tensor k, Tensor v, Tensor cls_k, Tensor cls_v, "
+               "int heads, float scale) -> Tensor")
+    k1_custom.register_fake(lambda q, *a: torch.empty_like(q))
+
+    routes = {
+        "layer_norm_fwd [32, 1024]": {
+            "op": lambda: fused_ln.layer_norm_fwd(x, scale, bias, 1e-6),
+            "launcher": lambda: fused_ln._fwd_cuda(x, scale, bias, 1e-6),
+            "custom_op": lambda: ln_custom(x, scale, bias, 1e-6)},
+        "space_attention_fwd [16, 4, 196, 768]": {
+            "op": lambda: ca.space_attention_fwd(*att, heads=HEADS,
+                                                 scale=SCALE),
+            "launcher": lambda: ca._fwd_cuda("space_attention_fwd", *att,
+                                             HEADS, SCALE),
+            "custom_op": lambda: k1_custom(*att, HEADS, SCALE)}}
+    out = {}
+    for label, fns in routes.items():
+        want = fns["launcher"]()
+        for route, fn in fns.items():
+            got = fn()
+            got, ref = ((got[0], want[0]) if isinstance(got, tuple)
+                        else (got, want))
+            check(torch.equal(got, ref),
+                  f"{label} {route}: not the launcher's bits")
+        # 7 rounds of 200 calls a route, the routes' order reversed every
+        # other round; the median round of each
+        host = {route: [] for route in fns}
+        for rnd in range(7):
+            for route in (list(fns) if rnd % 2 == 0 else list(fns)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fns[route]()
+                host[route].append((time.perf_counter() - t0) / 200 * 1e6)
+                torch.cuda.synchronize()
+        row = {route: {"ms": median_ms(fn),
+                       "host_us": statistics.median(host[route])}
+               for route, fn in fns.items()}
+        out[label] = row
+        over = {r: row[r]["host_us"] - row["launcher"]["host_us"]
+                for r in ("op", "custom_op")}
+        print(f"op cost {label} bf16: " + ", ".join(
+            f"{r} {v['ms']:.4f} ms / {v['host_us']:.1f} us host"
+            for r, v in row.items())
+            + f"; op - launcher {over['op']:+.1f} us host, custom_op - "
+            f"launcher {over['custom_op']:+.1f} us host [{smi}]", flush=True)
+    return out
+
+
+def phase_aot(ca, smi: str) -> dict:
+    """Phase 12: the serving model of phase 4 exported at buckets 1, 4 and
+    16 (``io/export.export_embedder``), loaded in a fresh process without
+    the model code, held to the live ``Embedder``, served by ``cli.serve
+    --aot``; returns the kernel launches of the artifact's requests."""
+    import torch
+
+    from egovlp_tpu_torch.io.export import ExportedEmbedder, export_embedder
+    from egovlp_tpu_torch.serving import Embedder
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    config, model, tok = serving_setup(root)
+    live = Embedder(model, tok, num_frames=4, input_res=224, pre_size=256,
+                    buckets=AOT_BUCKETS)
+    clips = np.random.default_rng(12).integers(
+        0, 256, (17, 4, 256, 256, 3), dtype=np.uint8)
+    texts = {n: (TEXTS * 6)[:n] for n in (*AOT_BUCKETS, 3)}
+
+    art = root / "embedder.zip"
+    t0 = time.perf_counter()
+    manifest = export_embedder(model, str(art), num_frames=4, input_res=224,
+                               pre_size=256, max_length=30,
+                               buckets=AOT_BUCKETS)
+    export_s = time.perf_counter() - t0
+    sd = model.state_dict()
+    weight_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+    art_bytes = art.stat().st_size
+    print(f"aot export: buckets {manifest['buckets']} on "
+          f"{manifest['device']} ({manifest['dtype']}) in {export_s:.1f} s; "
+          f"artifact {art_bytes} bytes, weights {weight_bytes} bytes "
+          f"({art_bytes / weight_bytes:.2%}) [{smi}]", flush=True)
+    check(manifest["device"] == "cuda" and art_bytes < 0.05 * weight_bytes,
+          "the artifact holds weights, or was not exported for cuda")
+
+    # ---- a fresh process loads and calls it without the model code -------
+    weights, vocab = root / "weights.pt", root / "vocab.txt"
+    torch.save(sd, weights)
+    np.save(root / "clips.npy", clips[:3])
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", AOT_LOADER, str(ROOT), str(art), str(weights),
+         str(vocab), str(root / "clips.npy"), str(root / "fresh.npz"),
+         json.dumps(texts[3])],
+        capture_output=True, text=True, timeout=300, cwd=root)
+    print(res.stdout.strip(), f"({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(res.returncode == 0, f"the fresh process failed or imported the "
+          f"model code ({res.returncode}):\n{res.stderr[-3000:]}")
+    fresh = np.load(root / "fresh.npz")
+
+    aot = ExportedEmbedder(str(art), sd, tok, device="cuda")
+    aot.embed_frames(clips[:1])  # first call: cuBLAS and allocator set-up
+    ref = {("video", n): live.embed_frames(clips[:n]) for n in texts}
+    ref.update({("text", n): live.embed_texts(texts[n]) for n in texts})
+    ca.reset_launch_counts()
+    live.embed_frames(clips[:16])
+    live_counts = dict(ca.launches)
+
+    # ---- the main path, counted ------------------------------------------
+    ca.reset_launch_counts()
+    got = {("video", n): aot.embed_frames(clips[:n]) for n in texts}
+    got.update({("text", n): aot.embed_texts(texts[n]) for n in texts})
+    counts = dict(ca.launches)
+    # ------------------------------------------------------------------------
+    print(f"aot launches: {counts}", flush=True)
+    errs = {}
+    for key, want in ref.items():
+        g = got[key]
+        check(g.shape == want.shape and np.isfinite(g).all(),
+              f"aot {key}: {g.shape}, live {want.shape}")
+        errs[f"{key[0]}_b{key[1]}"] = float(np.abs(g - want).max())
+    errs["fresh_text_b3"] = float(np.abs(fresh["text"] - ref["text", 3]).max())
+    errs["fresh_video_b3"] = float(np.abs(fresh["video"]
+                                          - ref["video", 3]).max())
+    print(f"aot vs live Embedder: max abs {errs} (tol {AOT_TOL:g}) [{smi}]",
+          flush=True)
+    check(max(errs.values()) <= AOT_TOL, "the artifact disagrees with the "
+          "live Embedder")
+    video_calls = len(texts)  # one video program call a request
+    for name in FWD:
+        check(counts[name] == 12 * video_calls,
+              f"aot {name}: {counts[name]} launches, expected "
+              f"{12 * video_calls}")
+    check(not any(counts[name] for name in (*BWD, *HS_KERNELS,
+                                            "layer_norm_bwd")),
+          f"aot launched a backward or head-split kernel: {counts}")
+    ca.reset_launch_counts()
+    aot.embed_frames(clips[:16])
+    one = dict(ca.launches)
+    print(f"aot one bucket-16 video call: {attention_counts(one)}, K3-fwd "
+          f"{one['layer_norm_fwd']} (live {live_counts['layer_norm_fwd']})",
+          flush=True)
+    check(one["space_attention_fwd"] == 12 and one["time_attention_fwd"] == 12
+          and one == live_counts, f"one bucket-16 call: {one}, the live "
+          f"call's {live_counts}")
+    try:
+        aot.embed_frames(clips[:17])
+    except ValueError as e:
+        check("bucket" in str(e), f"the refusal names no bucket: {e}")
+        print(f"aot 17 clips: raises ({e}) ok", flush=True)
+    else:
+        raise RuntimeError("the artifact took 17 clips past bucket 16")
+
+    # ---- cli.serve --aot answers over HTTP --------------------------------
+    cfg_path, ckpt = root / "serve.json", root / "serve.pth"
+    cfg_path.write_text(json.dumps(dict(config)))
+    torch.save({"state_dict": sd}, ckpt)
+    port, log = free_port(), root / "serve.log"
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "egovlp_tpu_torch.cli.serve", "-c",
+             str(cfg_path), "--checkpoint", str(ckpt), "--aot", str(art),
+             "--port", str(port), "--device", "cuda"],
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        t0 = time.perf_counter()
+        while True:
+            check(proc.poll() is None, "cli.serve --aot exited early:\n"
+                  + log.read_text()[-3000:])
+            check(time.perf_counter() - t0 < 240, "cli.serve --aot did not "
+                  "answer in 240 s")
+            try:
+                with urllib.request.urlopen(f"{url}/healthz", timeout=5) as r:
+                    if json.loads(r.read()) == {"status": "ok"}:
+                        break
+            except OSError:
+                time.sleep(1)
+        up_s = time.perf_counter() - t0
+        req = urllib.request.Request(
+            f"{url}/embed_text",
+            data=json.dumps({"texts": texts[3]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            served = np.asarray(json.loads(r.read())["embeddings"])
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    err = float(np.abs(served - ref["text", 3]).max())
+    print(f"aot cli.serve --aot: up in {up_s:.1f} s, /embed_text max abs "
+          f"{err:.2e} against the live Embedder", flush=True)
+    # JSON carries the float32 values as shortest decimal strings: exact
+    check(served.shape == (3, 256) and err <= AOT_TOL,
+          "cli.serve --aot /embed_text disagrees with the live Embedder")
+
+    lat = {}
+    for n in AOT_BUCKETS:
+        t_live, t_aot = interleaved_ms(lambda: live.embed_frames(clips[:n]),
+                                       lambda: aot.embed_frames(clips[:n]))
+        lat[n] = {"artifact_ms": t_aot, "live_ms": t_live}
+        print(f"aot latency bucket {n}: embed_frames artifact {t_aot:.2f} ms, "
+              f"live {t_live:.2f} ms ({t_aot / t_live - 1:+.1%}) [{smi}]",
+              flush=True)
+    profile_calls("aot embed_frames bucket 16",
+                  lambda i: aot.embed_frames(clips[:16]), smi)
+    profile_calls("live embed_frames bucket 16",
+                  lambda i: live.embed_frames(clips[:16]), smi)
+    costs = op_host_costs(smi)
+    del aot, live, model
+    tmp.cleanup()
+    return counts, {"export_s": export_s, "artifact_bytes": art_bytes,
+                    "weight_bytes": weight_bytes, "max_abs_err": errs,
+                    "latency": lat, "op_cost": costs}
+
+
 def main() -> None:
     import torch
 
@@ -3276,6 +3617,8 @@ def main() -> None:
         vitl_counts = phase_vitl(ca, smi, Path(tree.name))
     finally:
         tree.cleanup()
+    torch.cuda.empty_cache()
+    aot_counts, aot = phase_aot(ca, smi)
 
     def sources(name):
         return {"source": f"egovlp_tpu_torch/kernels/csrc/{name}.cu",
@@ -3292,7 +3635,8 @@ def main() -> None:
                                      "finetune16": ft_counts[name],
                                      "oscc_pnr16": sc_counts[name],
                                      "extract": em_counts[name],
-                                     "vitl_cli": vitl_counts[name]},
+                                     "vitl_cli": vitl_counts[name],
+                                     "aot_serving": aot_counts[name]},
                 **rows[name]}
                for name, replaces in {**KERNELS, **LN_KERNELS}.items()]
     kernels += [{"name": name, "route": "cuda", **sources(name),
@@ -3302,9 +3646,11 @@ def main() -> None:
                                       "finetune16": ft_counts[name],
                                       "oscc_pnr16": sc_counts[name],
                                       "extract": em_counts[name],
-                                      "vitl_cli": vitl_counts[name]},
+                                      "vitl_cli": vitl_counts[name],
+                                      "aot_serving": aot_counts[name]},
                  **rows[name]}
                 for name, replaces in HS_KERNELS.items()]
+    print(json.dumps({"aot": aot}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

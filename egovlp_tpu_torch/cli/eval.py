@@ -18,7 +18,9 @@ port's own ``checkpoint-epoch{n}.pth``, whose payload holds
 unless ``--device cpu`` is given.  ``--multihost`` (under torchrun) joins
 the process group first: each rank evaluates its shard and every rank
 gets the whole dataset's metrics; rank 0 prints them.  ``nlq`` / ``mq``
-have no metric here and raise, naming ``cli.extract``.
+have no metric here and raise, naming ``cli.extract``.  With the config's
+``visualizer.type`` set, ``epic`` and ``charades`` also write a ranking
+report (``ranking_ep0.html``) under ``{trainer.save_dir}/web``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import argparse
 import json
 import os
 
+import torch
 import torch.distributed as dist
 
 from egovlp_tpu_torch import build
@@ -42,8 +45,10 @@ from egovlp_tpu_torch.evals.oscc_pnr import evaluate_oscc, evaluate_pnr
 from egovlp_tpu_torch.io.config import load_config
 from egovlp_tpu_torch.io.logging import setup_logging
 from egovlp_tpu_torch.metrics.mir import load_epic_annotations
+from egovlp_tpu_torch.models.dual_encoder import sim_matrix
 from egovlp_tpu_torch.train.recipes import (
     _dl_args,
+    _visualizer,
     classes_file,
     infer_task,
     resolve_device,
@@ -101,13 +106,20 @@ def main(argv=None):
           if task in ("egoclip", "egomcq") else None)
     loader = build.build_loader(dl_args, split, tokenizer, batch_size=bs)
     loader.drop_last = False  # every item of the split, whichever it is
+    visualizer = _visualizer(config)
     try:
         if task == "epic":
-            t, v, _ = embed_dataset(model, loader, input_res)
+            t, v, _, meta = embed_dataset(model, loader, input_res,
+                                          return_meta=True)
             metrics = evaluate_epic_mir(
                 t, v, *load_epic_annotations(
                     dl_args.get("meta_dir") or dl_args["data_dir"]),
                 use_dual_softmax=args.dual_softmax)
+            if visualizer is not None:
+                sims = sim_matrix(torch.from_numpy(t), torch.from_numpy(v))
+                page = visualizer.visualize_ranking(
+                    sims.numpy(), 0, meta["texts"], meta["paths"])
+                logger.info("wrote retrieval report %s", page)
         elif task in ("oscc", "pnr"):
             evaluate = evaluate_oscc if task == "oscc" else evaluate_pnr
             metrics = evaluate(model, loader, input_res)
@@ -115,7 +127,7 @@ def main(argv=None):
             metrics = evaluate_charades(
                 model, loader,
                 load_charades_classes(classes_file(config, dl_args)),
-                tokenizer, input_res)
+                tokenizer, input_res, visualizer=visualizer)
         else:
             metrics = evaluate_egomcq(model, loader, input_res)
     finally:

@@ -4,9 +4,17 @@
         [--checkpoint egovlp.pth] [--host 127.0.0.1] [--port 8000] \
         [--device cuda]
 
-``--checkpoint`` takes a torch pickle (``.pth``/``.pt``/``.bin``); an Orbax
-directory from the JAX package must first be exported with
-``python -m egovlp_tpu.cli.convert export_torch``.
+AOT mode (``torch.export`` artifacts, ``egovlp_tpu_torch/io/export.py``):
+
+    # export text and video programs for buckets 1, 4, 16 and exit
+    ... --config c.json [--checkpoint k] --export-aot embedder.zip
+    # serve from the artifact, the checkpoint's weights as its input
+    ... --config c.json [--checkpoint k] --aot embedder.zip
+
+An artifact runs on the device type it was exported on.  ``--checkpoint``
+takes a torch pickle (``.pth``/``.pt``/``.bin``); an Orbax directory from
+the JAX package must first be exported with ``python -m
+egovlp_tpu.cli.convert export_torch``.
 """
 
 from __future__ import annotations
@@ -30,6 +38,10 @@ def main(argv=None):
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--export-aot", default=None, metavar="PATH",
+                    help="export a torch.export artifact and exit")
+    ap.add_argument("--aot", default=None, metavar="PATH",
+                    help="serve from a previously exported artifact")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -53,8 +65,27 @@ def main(argv=None):
         raise SystemExit("serving requires a vocab.txt "
                          "(arch.args.text_params.vocab)")
     vp = _dl_args(config).get("video_params", {})
-    emb = Embedder(model, tokenizer, num_frames=int(vp.get("num_frames", 4)),
-                   input_res=int(vp.get("input_res", 224)))
+    num_frames = int(vp.get("num_frames", 4))
+    input_res = int(vp.get("input_res", 224))
+    if args.export_aot:
+        from egovlp_tpu_torch.io.export import export_embedder
+
+        manifest = export_embedder(model, args.export_aot,
+                                   num_frames=num_frames, input_res=input_res,
+                                   max_length=tokenizer.max_length)
+        logger.info("exported %s: buckets=%s device=%s", args.export_aot,
+                    manifest["buckets"], manifest["device"])
+        return
+    if args.aot:
+        from egovlp_tpu_torch.io.export import ExportedEmbedder
+
+        emb = ExportedEmbedder(args.aot, model.state_dict(), tokenizer,
+                               device=device)
+        logger.info("serving AOT artifact %s (buckets=%s)", args.aot,
+                    emb.buckets)
+    else:
+        emb = Embedder(model, tokenizer, num_frames=num_frames,
+                       input_res=input_res)
     logger.info("serving on %s:%d (%s)", args.host, args.port, device)
     serve(emb, args.host, args.port)
 

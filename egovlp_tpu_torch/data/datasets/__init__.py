@@ -3,12 +3,13 @@
 Counterpart of ``egovlp_tpu/data/datasets/__init__.py``, under the names
 of the reference's loader factory so that configs carry over.  Ported so
 far: EgoClip pretraining, EgoMCQ evaluation, the EPIC-Kitchens MIR,
-CharadesEgo and Ego4D OSCC / PNR fine-tunes, and the Ego4D NLQ / MQ
-feature extraction.  The legacy Frozen-in-Time datasets the JAX registry
-names raise until they are ported (``ROADMAP.md``, Queue A, A11).
+CharadesEgo and Ego4D OSCC / PNR fine-tunes, the Ego4D NLQ / MQ feature
+extraction, and the legacy Frozen-in-Time data, WebVid and CC3M: every
+name of the JAX registry.
 """
 
 from egovlp_tpu_torch.data.datasets.base import DatasetConfig, TextVideoDataset
+from egovlp_tpu_torch.data.datasets.cc3m import ConceptualCaptionsDataset
 from egovlp_tpu_torch.data.datasets.charades import CharadesEgoDataset
 from egovlp_tpu_torch.data.datasets.egoclip import EgoClipDataset, EgoMCQDataset
 from egovlp_tpu_torch.data.datasets.epic import EpicMIRDataset
@@ -17,8 +18,7 @@ from egovlp_tpu_torch.data.datasets.oscc_pnr import (
     Ego4DOSCCDataset,
     Ego4DPNRDataset,
 )
-
-NOT_PORTED = frozenset({"WebVid", "ConceptualCaptions3M"})
+from egovlp_tpu_torch.data.datasets.webvid import WebVidDataset
 
 
 def _egoclip_dispatch(cfg: DatasetConfig):
@@ -40,10 +40,9 @@ def dataset_factory(name: str):
         "Ego4D_PNR": Ego4DPNRDataset,
         "Ego4D_NLQ": Ego4DNLQDataset,
         "Ego4D_MQ": Ego4DMQDataset,
+        "WebVid": WebVidDataset,
+        "ConceptualCaptions3M": ConceptualCaptionsDataset,
     }
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet (ROADMAP.md, Queue A, A11)")
     if name not in registry:
         raise NotImplementedError(f"unknown dataset {name!r}")
     return registry[name]
@@ -52,4 +51,5 @@ def dataset_factory(name: str):
 __all__ = ["DatasetConfig", "TextVideoDataset", "EgoClipDataset",
            "EgoMCQDataset", "EpicMIRDataset", "CharadesEgoDataset",
            "Ego4DOSCCDataset", "Ego4DPNRDataset", "Ego4DNLQDataset",
-           "Ego4DMQDataset", "dataset_factory"]
+           "Ego4DMQDataset", "WebVidDataset", "ConceptualCaptionsDataset",
+           "dataset_factory"]

@@ -6,8 +6,9 @@ datasets: the OpenCV backend, the native decoder (``data/native.py``)
 when its library is built, a small per-thread cache of open handles
 (``acquire_video`` / ``release_video``), last-frame padding, the
 whole-video reader, the EgoClip chunked reader, the EPIC JPEG-frame
-reader and the CharadesEgo reader.
-Each reader returns a FIXED ``[num_frames, pre, pre, 3]`` uint8 array
+reader, the CharadesEgo reader, the CC3M image reader ``read_image``
+(:294) and the raw-resolution ``load_frames_from_video_path`` (:304).
+Each dataset reader returns a FIXED ``[num_frames, pre, pre, 3]`` uint8 array
 (short-side resized and center cropped) and the sampled indices.
 """
 
@@ -269,3 +270,51 @@ def read_frames_charades(video_path: str, num_frames: int, sample: str,
                                            sample=sample, rng=rng)
         frames, ok = v.read_frames(idxs, pre_size)
     return _pad_to(frames, ok, num_frames), idxs
+
+
+def read_image(path: str, pre_size: int = 256) -> np.ndarray:
+    """One image as a 1-frame clip (CC3M): uint8 ``[1, pre, pre, 3]``,
+    short-side resized and center cropped."""
+    import cv2
+
+    img = cv2.imread(path)
+    if img is None:
+        raise IOError(f"cannot read image {path}")
+    return _resize_center_crop_cv2(img, pre_size)[None]
+
+
+def load_frames_from_video_path(path: str, num_frames: int,
+                                sample: str = "rand",
+                                rng: Optional[np.random.Generator] = None,
+                                save_dir: Optional[str] = None,
+                                ) -> Tuple[np.ndarray, List[int]]:
+    """Frames at the video's own resolution (a demo and debug helper):
+    ``sample_frames`` over the whole video, each frame read by a seek to
+    its index, channel-last float32 ``[T, H, W, 3]`` in [0, 1] RGB, and the
+    indices.  ``save_dir`` also writes each frame as ``{index}.jpg``.
+    Raises ``IOError`` when the video does not open and ``ValueError``
+    when a sampled frame does not decode."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise IOError(f"cv2 cannot open {path}")
+    try:
+        vlen = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        if sample == "rand" and rng is None:
+            rng = np.random.default_rng()
+        frame_idxs = sample_frames(num_frames, vlen, sample, rng=rng)
+        frames = []
+        for index in frame_idxs:
+            cap.set(cv2.CAP_PROP_POS_FRAMES, index)
+            ret, frame = cap.read()
+            if not ret:
+                raise ValueError(f"failed to decode frame {index} of {path}")
+            if save_dir is not None:
+                os.makedirs(save_dir, exist_ok=True)
+                cv2.imwrite(os.path.join(save_dir, f"{index}.jpg"), frame)
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+        out = np.stack(frames).astype(np.float32) / 255.0
+    finally:
+        cap.release()
+    return out, frame_idxs

@@ -15,9 +15,11 @@ center crop to ``pre`` = 256):
 
 Resampling is bilinear, align_corners=False, source coordinates clamped
 into the frame (``_interp_weights`` :75), as two batched matmuls with
-interpolation matrices.  Channels stay last; the JAX package's
-channel-folded layout and its ``kron`` matrices were a TPU lane
-workaround.
+interpolation matrices.  The eval-time multi-crop helpers (:201-245)
+``center_plus_four_crops``, ``center_plus_two_horizontal_crops`` and
+``two_horizontal_crop`` cut static boxes out of ``[..., H, W, 3]``.
+Channels stay last; the JAX package's channel-folded layout and its
+``kron`` matrices were a TPU lane workaround.
 """
 
 from __future__ import annotations
@@ -112,3 +114,38 @@ def resized_crop_flip(frames: torch.Tensor, boxes: torch.Tensor,
     x = torch.einsum("byh,bthwc->btywc", wy, x)
     x = torch.einsum("bxw,btywc->btyxc", wx, x)
     return _normalize(x)
+
+
+def _crop(x: torch.Tensor, top: int, left: int, size: int) -> torch.Tensor:
+    """The ``size x size`` box at (top, left) of ``[..., H, W, 3]``."""
+    return x[..., top:top + size, left:left + size, :]
+
+
+def center_plus_four_crops(frames: torch.Tensor,
+                           crop_size: int) -> torch.Tensor:
+    """``[..., H, W, 3]`` -> ``[5, ..., crop, crop, 3]``: the center crop,
+    then the top-left, top-right, bottom-left and bottom-right corners."""
+    H, W = frames.shape[-3:-1]
+    boxes = [((H - crop_size) // 2, (W - crop_size) // 2), (0, 0),
+             (0, W - crop_size), (H - crop_size, 0),
+             (H - crop_size, W - crop_size)]
+    return torch.stack([_crop(frames, t, l, crop_size) for t, l in boxes])
+
+
+def center_plus_two_horizontal_crops(frames: torch.Tensor,
+                                     crop_size: int) -> torch.Tensor:
+    """``[..., H, W, 3]`` -> ``[3, ..., crop, crop, 3]``: the center, left
+    and right crops, all vertically centered."""
+    H, W = frames.shape[-3:-1]
+    top = (H - crop_size) // 2
+    boxes = [(top, (W - crop_size) // 2), (top, 0), (top, W - crop_size)]
+    return torch.stack([_crop(frames, t, l, crop_size) for t, l in boxes])
+
+
+def two_horizontal_crop(frames: torch.Tensor, crop_size: int,
+                        index: int) -> torch.Tensor:
+    """The reference's ``TwoHoriCrop``: the vertically centered left
+    (``index`` 0) or right (1) ``crop x crop`` box of ``[..., H, W, 3]``."""
+    H, W = frames.shape[-3:-1]
+    left = 0 if index == 0 else W - crop_size
+    return _crop(frames, (H - crop_size) // 2, left, crop_size)

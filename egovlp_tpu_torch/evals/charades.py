@@ -29,22 +29,29 @@ def load_charades_classes(path: str) -> List[str]:
 
 
 def evaluate_charades(model, loader, class_sentences: List[str], tokenizer,
-                      input_res: int = 224) -> Dict[str, float]:
+                      input_res: int = 224, visualizer=None,
+                      epoch: int = 0) -> Dict[str, float]:
     """The mAP over ``loader``'s epoch 0, whose batches hold ``frames``,
     ``target`` and ``_index``.  In a multi-process run each rank embeds its
     shard and ``gather_eval`` gives every rank every video, so every rank
-    returns the same mAP."""
+    returns the same mAP.  A ``visualizer`` writes each class's top videos
+    for ``epoch`` (multi-label: no ground truth highlighted)."""
     model.eval()
     ids, mask = tokenizer(class_sentences)
     cls = embed_text(model, ids, mask).cpu()
-    vids, targets, idxs = [], [], []
+    vids, targets, idxs, paths = [], [], [], []
     for batch in loader.epoch(0):
-        vids.append(embed_video(model, batch["frames"], input_res)
-                    .cpu().numpy())
+        v = embed_video(model, batch["frames"], input_res).cpu().numpy()
+        vids.append(v)
         targets.append(np.asarray(batch["target"]))
         idxs.append(np.asarray(batch["_index"]))
-    g, _ = gather_eval({"vids": np.concatenate(vids),
-                        "targets": np.concatenate(targets)},
-                       index=np.concatenate(idxs))
+        paths.extend(batch.get("path", [""] * len(v)))
+    g, gobj = gather_eval({"vids": np.concatenate(vids),
+                           "targets": np.concatenate(targets)},
+                          index=np.concatenate(idxs),
+                          objects={"paths": paths})
     sims = sim_matrix(cls, torch.from_numpy(g["vids"])).T.numpy()
+    if visualizer is not None:
+        visualizer.visualize_ranking(sims.T, epoch, class_sentences,
+                                     gobj["paths"], show_gt=False)
     return charades_metrics(sims, g["targets"])

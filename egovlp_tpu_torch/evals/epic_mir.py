@@ -61,20 +61,27 @@ def evaluate_epic_mir(text_embeds: np.ndarray, vid_embeds: np.ndarray,
     return retrieval_metrics(sim.T[:, indexes], relevancy)
 
 
-def embed_dataset(model, loader, input_res: int = 224):
+def embed_dataset(model, loader, input_res: int = 224,
+                  return_meta: bool = False):
     """``(text_embeds, vid_embeds, item_indices)`` of every item of an EPIC
-    loader's epoch 0, raw (not normalised) and in dataset order.  In a
-    multi-process run each rank embeds its shard and ``gather_eval``, by
-    ``item_v``, drops the shard pads and gives every rank every row."""
+    loader's epoch 0, raw (not normalised) and in dataset order; with
+    ``return_meta`` also ``{'texts', 'paths'}`` in the same order (for the
+    ranking report).  In a multi-process run each rank embeds its shard
+    and ``gather_eval``, by ``item_v``, drops the shard pads and gives
+    every rank every row."""
     model.eval()
-    t_all, v_all, idx_all = [], [], []
+    t_all, v_all, idx_all, texts, paths = [], [], [], [], []
     for batch in loader.epoch(0):
         t, v = embed_batch(model, batch["frames"], batch["text_ids"],
                            batch["text_mask"], input_res)
         t_all.append(t.cpu().numpy())
         v_all.append(v.cpu().numpy())
         idx_all.append(np.asarray(batch["item_v"]))
+        texts.extend(batch.get("text", [""] * len(t)))
+        paths.extend(batch.get("path", [""] * len(t)))
     idx = np.concatenate(idx_all)
-    g, _ = gather_eval({"t": np.concatenate(t_all),
-                        "v": np.concatenate(v_all), "idx": idx}, index=idx)
-    return g["t"], g["v"], g["idx"]
+    g, meta = gather_eval({"t": np.concatenate(t_all),
+                           "v": np.concatenate(v_all), "idx": idx},
+                          index=idx, objects={"texts": texts, "paths": paths})
+    out = (g["t"], g["v"], g["idx"])
+    return out + (meta,) if return_meta else out

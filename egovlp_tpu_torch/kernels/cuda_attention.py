@@ -17,9 +17,14 @@ key and value ``[B, 1, D]`` spliced in front of every group; heads are
 sliced from D inside the kernels, which scale q.  K4 and K5 take heads
 already split and q already scaled: K4 ``[BH, G, L, hd]`` groups, K5 the
 natural ``[BH, f, n, hd]`` layout (group = one patch column's f frames),
-CLS ``[BH, 1, hd]``.  A wrapper given CUDA tensors launches its kernel
-(``kernels/csrc``) or raises; given CPU tensors it computes the plain
-version beside it.  ``launches`` counts kernel launches per wrapper.  As
+CLS ``[BH, 1, hd]``.  Each wrapper calls its op,
+``torch.ops.egovlp_torch.<name>`` (``kernels/ops.py``): given CUDA tensors
+the op launches its kernel (``kernels/csrc``) or raises; given CPU tensors
+it computes the plain version beside it.  The autograd Functions launch
+through ``direct`` instead, without the dispatcher's host cost; callers
+take the ops where grad mode is off (``forward_only``), so that
+``torch.export`` captures them.  ``launches`` counts kernel launches per
+wrapper; ``_fwd_cuda`` / ``_bwd_cuda`` are the launchers.  As
 the JAX ``custom_vjp`` does, a Function saves only its inputs and the
 backward kernel recomputes the probabilities.
 
@@ -44,6 +49,7 @@ from __future__ import annotations
 
 import torch
 
+from egovlp_tpu_torch.kernels import ops
 from egovlp_tpu_torch.kernels._build import load_library
 
 # K1's softmax runs in base 2: log2(e) is folded into the q scaling before
@@ -108,38 +114,102 @@ def _launch(name: str, inputs, outputs, args) -> None:
     launches[name] += 1
 
 
-def _fwd(name, plain, x, extra=(), **kw):
-    """``x = (q, k, v, cls_k, cls_v)``; ``kw`` are the kernel's scalars
-    after the shape (``heads``, ``scale`` for K1/K2; none for K4/K5), and
-    ``extra`` the kernel's scalars after them that the twin does not take
-    (K5's body)."""
-    q = x[0]
-    _check(*x, kw.get("heads", 1))
-    if q.device.type == "cpu":
-        return plain(*x, **kw)
+def _fwd_cuda(name: str, q, k, v, cls_k, cls_v, *scalars) -> torch.Tensor:
+    """The forward launcher of kernel ``name``: ``scalars`` are the
+    kernel's after the shape (``heads``, ``scale`` for K1/K2; none for
+    K4/K5); K5 also takes its body (``time_hs_body``)."""
+    x = (q, k, v, cls_k, cls_v)
+    _check(*x, scalars[0] if scalars else 1)
+    extra = (time_hs_body(*x),) if name == "time_attention_hs_fwd" else ()
     out = torch.empty_like(q)
-    _launch(name, x, (out,), (*q.shape, *kw.values(), *extra))
+    _launch(name, x, (out,), (*q.shape, *scalars, *extra))
     return out
 
 
-def _bwd(name, plain, part_shape, x, extra=(), **kw):
-    """dq, dk, dv and the CLS grads ``[B, 1, D]`` for ``x = (q, k, v, cls_k,
-    cls_v, do)``: the kernel writes each group's float32 share of the CLS
-    grads to ``part_shape = [B, groups, D]`` scratch, summed here over the
-    groups and cast once.  ``kw`` and ``extra`` as for ``_fwd``."""
-    q = x[0]
-    _check(*x[:5], kw.get("heads", 1), x[5])
-    if q.device.type == "cpu":
-        return plain(*x, **kw)
+def _bwd_cuda(name: str, q, k, v, cls_k, cls_v, do, *scalars):
+    """The backward launcher of kernel ``name``: ``(dqkv [3, *q.shape],
+    dcls [2, B, 1, D])``.  The kernel writes each group's float32 share of
+    the CLS grads to ``_part_shape`` scratch, summed here over the groups
+    and cast once.  ``scalars`` as for ``_fwd_cuda``."""
+    x = (q, k, v, cls_k, cls_v, do)
+    _check(*x[:5], scalars[0] if scalars else 1, do)
+    body = time_hs_body(*x) if name == "time_attention_hs_bwd" else None
+    extra = () if body is None else (body,)
     # one allocation for the three grads and one for both scratches, one
     # sum and one cast for both CLS grads: fewer host calls a launch
-    dq, dk, dv = torch.empty((3, *q.shape), device=q.device,
-                             dtype=q.dtype).unbind(0)
-    parts = torch.empty((2, *part_shape), device=q.device, dtype=torch.float32)
-    _launch(name, x, (dq, dk, dv, parts[0], parts[1]),
-            (*q.shape, *kw.values(), *extra))
-    dck, dcv = parts.sum(dim=2, keepdim=True).to(q.dtype).unbind(0)
-    return dq, dk, dv, dck, dcv
+    dqkv = torch.empty((3, *q.shape), device=q.device, dtype=q.dtype)
+    parts = torch.empty((2, *_part_shape(name, q, body)), device=q.device,
+                        dtype=torch.float32)
+    _launch(name, x, (dqkv[0], dqkv[1], dqkv[2], parts[0], parts[1]),
+            (*q.shape, *scalars, *extra))
+    return dqkv, parts.sum(dim=2, keepdim=True).to(q.dtype)
+
+
+def _unbind(grads) -> tuple:
+    """A backward op's ``(dqkv, dcls)`` -> ``(dq, dk, dv, dcls_k,
+    dcls_v)``."""
+    return (*grads[0].unbind(0), *grads[1].unbind(0))
+
+
+def _part_shape(name: str, q, body) -> tuple:
+    """The shape of one of a backward kernel's two CLS-grad scratches."""
+    B, G, N, D = q.shape
+    if name == "time_attention_bwd":
+        return B, -(-N // TIME_BWD_RUN), D
+    if name == "time_attention_hs_bwd":
+        return time_hs_bwd_parts(q, body)
+    return B, G, D
+
+
+# kernel name -> its implementation on CPU tensors (the plain twin) and on
+# CUDA tensors (the launcher), each with the op's arguments and outputs
+_IMPLS = {}
+
+
+def _define(name: str, plain, scalars: bool) -> "torch._ops.OpOverload":
+    """The op of kernel ``name`` (``ops.define``): its launcher on CUDA, its
+    plain twin ``plain`` on the CPU (with ``heads`` and ``scale`` where
+    ``scalars``), and the launcher's checks and output shapes on fake
+    tensors.  The CPU and CUDA implementations also go to ``_IMPLS``."""
+    fwd = name.endswith("fwd")
+    n = 5 if fwd else 6
+    args = "Tensor q, Tensor k, Tensor v, Tensor cls_k, Tensor cls_v"
+    args += "" if fwd else ", Tensor do"
+    args += ", int heads, float scale" if scalars else ""
+    outs = "Tensor" if fwd else "(Tensor, Tensor)"
+
+    def cpu(*a):
+        kw = dict(zip(("heads", "scale"), a[n:]))
+        _check(*a[:5], kw.get("heads", 1), *a[5:n])
+        if fwd:
+            return plain(*a[:n], **kw)
+        dq, dk, dv, dck, dcv = plain(*a[:n], **kw)
+        return torch.stack([dq, dk, dv]), torch.stack([dck, dcv])
+
+    def fake(*a):
+        q = a[0]
+        _check(*a[:5], a[n] if scalars else 1, *a[5:n])
+        if fwd:
+            return torch.empty_like(q)
+        return (q.new_empty((3, *q.shape)),
+                q.new_empty((2, q.shape[0], 1, q.shape[-1])))
+
+    def cuda(*a):
+        return (_fwd_cuda if fwd else _bwd_cuda)(name, *a)
+
+    _IMPLS[name] = {"cpu": cpu, "cuda": cuda}
+    return ops.define(name, f"({args}) -> {outs}", cpu, cuda, fake)
+
+
+def direct(name: str, *args):
+    """Kernel ``name`` on the op's arguments without the dispatcher: the
+    launcher for CUDA tensors, the plain twin for CPU tensors, outputs as
+    its wrapper returns them.  The autograd Functions, which only training
+    calls, take this route: the op cost the host 7-14 us a call more
+    beside an NVIDIA H100 80GB HBM3 at 700 W (``PERF.md``, section 6)."""
+    impl = _IMPLS[name]["cpu" if args[0].device.type == "cpu" else "cuda"]
+    out = impl(*args)
+    return out if name.endswith("fwd") else _unbind(out)
 
 
 # --------------------------------------------------------------------------
@@ -176,8 +246,10 @@ def space_attention_fwd_plain(q, k, v, cls_k, cls_v, *, heads: int,
 def space_attention_fwd(q, k, v, cls_k, cls_v, *, heads: int,
                         scale: float) -> torch.Tensor:
     """K1-fwd: each frame's patch queries attend over [CLS; that frame]."""
-    return _fwd("space_attention_fwd", space_attention_fwd_plain,
-                (q, k, v, cls_k, cls_v), heads=heads, scale=scale)
+    return _SPACE_FWD(q, k, v, cls_k, cls_v, heads, scale)
+
+
+_SPACE_FWD = _define("space_attention_fwd", space_attention_fwd_plain, True)
 
 
 def space_attention_bwd_plain(q, k, v, cls_k, cls_v, do, *, heads: int,
@@ -221,10 +293,10 @@ def space_attention_bwd_plain(q, k, v, cls_k, cls_v, do, *, heads: int,
 def space_attention_bwd(q, k, v, cls_k, cls_v, do, *, heads: int,
                         scale: float):
     """K1-bwd: ``(dq, dk, dv, dcls_k [B, 1, D], dcls_v [B, 1, D])``."""
-    B, G, _, D = q.shape
-    return _bwd("space_attention_bwd", space_attention_bwd_plain,
-                (B, G, D), (q, k, v, cls_k, cls_v, do), heads=heads,
-                scale=scale)
+    return _unbind(_SPACE_BWD(q, k, v, cls_k, cls_v, do, heads, scale))
+
+
+_SPACE_BWD = _define("space_attention_bwd", space_attention_bwd_plain, True)
 
 
 # --------------------------------------------------------------------------
@@ -254,8 +326,10 @@ def time_attention_fwd_plain(q, k, v, cls_k, cls_v, *, heads: int,
 def time_attention_fwd(q, k, v, cls_k, cls_v, *, heads: int,
                        scale: float) -> torch.Tensor:
     """K2-fwd: each patch column's frame queries attend over [CLS; column]."""
-    return _fwd("time_attention_fwd", time_attention_fwd_plain,
-                (q, k, v, cls_k, cls_v), heads=heads, scale=scale)
+    return _TIME_FWD(q, k, v, cls_k, cls_v, heads, scale)
+
+
+_TIME_FWD = _define("time_attention_fwd", time_attention_fwd_plain, True)
 
 
 def time_attention_bwd_plain(q, k, v, cls_k, cls_v, do, *, heads: int,
@@ -301,11 +375,10 @@ def time_attention_bwd(q, k, v, cls_k, cls_v, do, *, heads: int,
     """K2-bwd: ``(dq, dk, dv, dcls_k [B, 1, D], dcls_v [B, 1, D])``; the
     kernel writes each run of ``TIME_BWD_RUN`` patch columns' share of the
     CLS grads."""
-    B, _, N, D = q.shape
-    runs = -(-N // TIME_BWD_RUN)
-    return _bwd("time_attention_bwd", time_attention_bwd_plain,
-                (B, runs, D), (q, k, v, cls_k, cls_v, do), heads=heads,
-                scale=scale)
+    return _unbind(_TIME_BWD(q, k, v, cls_k, cls_v, do, heads, scale))
+
+
+_TIME_BWD = _define("time_attention_bwd", time_attention_bwd_plain, True)
 
 
 # --------------------------------------------------------------------------
@@ -333,8 +406,11 @@ def grouped_attention_fwd_plain(q, k, v, cls_k, cls_v) -> torch.Tensor:
 
 def grouped_attention_fwd(q, k, v, cls_k, cls_v) -> torch.Tensor:
     """K4-fwd: each group's L queries attend over [CLS; that group]."""
-    return _fwd("grouped_attention_fwd", grouped_attention_fwd_plain,
-                (q, k, v, cls_k, cls_v))
+    return _GROUPED_FWD(q, k, v, cls_k, cls_v)
+
+
+_GROUPED_FWD = _define("grouped_attention_fwd", grouped_attention_fwd_plain,
+                       False)
 
 
 def grouped_attention_bwd_plain(q, k, v, cls_k, cls_v, do):
@@ -361,9 +437,11 @@ def grouped_attention_bwd_plain(q, k, v, cls_k, cls_v, do):
 
 def grouped_attention_bwd(q, k, v, cls_k, cls_v, do):
     """K4-bwd: ``(dq, dk, dv, dcls_k [BH, 1, hd], dcls_v [BH, 1, hd])``."""
-    BH, G, _, hd = q.shape
-    return _bwd("grouped_attention_bwd", grouped_attention_bwd_plain,
-                (BH, G, hd), (q, k, v, cls_k, cls_v, do))
+    return _unbind(_GROUPED_BWD(q, k, v, cls_k, cls_v, do))
+
+
+_GROUPED_BWD = _define("grouped_attention_bwd", grouped_attention_bwd_plain,
+                       False)
 
 
 # --------------------------------------------------------------------------
@@ -423,9 +501,11 @@ def time_hs_body(*tensors) -> int:
 def time_attention_hs_fwd(q, k, v, cls_k, cls_v) -> torch.Tensor:
     """K5-fwd: each patch column's f frame queries attend over
     [CLS; column], per (batch * head)."""
-    x = (q, k, v, cls_k, cls_v)
-    return _fwd("time_attention_hs_fwd", time_attention_hs_fwd_plain, x,
-                extra=(time_hs_body(*x),))
+    return _TIME_HS_FWD(q, k, v, cls_k, cls_v)
+
+
+_TIME_HS_FWD = _define("time_attention_hs_fwd", time_attention_hs_fwd_plain,
+                       False)
 
 
 def time_attention_hs_bwd_plain(q, k, v, cls_k, cls_v, do):
@@ -465,15 +545,25 @@ def time_attention_hs_bwd(q, k, v, cls_k, cls_v, do):
     """K5-bwd: ``(dq, dk, dv, dcls_k [BH, 1, hd], dcls_v [BH, 1, hd])``;
     the kernel writes float32 shares of the CLS grads
     (``time_hs_bwd_parts``)."""
-    x = (q, k, v, cls_k, cls_v, do)
-    body = time_hs_body(*x)
-    return _bwd("time_attention_hs_bwd", time_attention_hs_bwd_plain,
-                time_hs_bwd_parts(q, body), x, extra=(body,))
+    return _unbind(_TIME_HS_BWD(q, k, v, cls_k, cls_v, do))
+
+
+_TIME_HS_BWD = _define("time_attention_hs_bwd", time_attention_hs_bwd_plain,
+                       False)
 
 
 # --------------------------------------------------------------------------
-# autograd: forward kernel, backward kernel, inputs saved (no probabilities)
+# autograd: forward kernel, backward kernel, inputs saved (no probabilities);
+# both launched by ``direct``.  A forward without autograd (serving,
+# evaluation, ``torch.export``) calls the op instead: ``forward_only``
 # --------------------------------------------------------------------------
+
+def forward_only() -> bool:
+    """True where the attention and LayerNorm callers take the registered
+    ops rather than the autograd Functions: grad mode off.  The ops are
+    what ``torch.export`` can capture; the Functions launch directly."""
+    return not torch.is_grad_enabled()
+
 
 class SpaceAttention(torch.autograd.Function):
     """K1: ``apply(q, k, v, cls_k, cls_v, heads, scale)``."""
@@ -482,14 +572,13 @@ class SpaceAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, cls_k, cls_v, heads, scale):
         ctx.save_for_backward(q, k, v, cls_k, cls_v)
         ctx.heads, ctx.scale = heads, scale
-        return space_attention_fwd(q, k, v, cls_k, cls_v, heads=heads,
-                                   scale=scale)
+        return direct("space_attention_fwd", q, k, v, cls_k, cls_v, heads,
+                      scale)
 
     @staticmethod
     def backward(ctx, do):
-        return (*space_attention_bwd(*ctx.saved_tensors, do.contiguous(),
-                                     heads=ctx.heads, scale=ctx.scale),
-                None, None)
+        return (*direct("space_attention_bwd", *ctx.saved_tensors,
+                        do.contiguous(), ctx.heads, ctx.scale), None, None)
 
 
 class TimeAttention(torch.autograd.Function):
@@ -499,14 +588,13 @@ class TimeAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, cls_k, cls_v, heads, scale):
         ctx.save_for_backward(q, k, v, cls_k, cls_v)
         ctx.heads, ctx.scale = heads, scale
-        return time_attention_fwd(q, k, v, cls_k, cls_v, heads=heads,
-                                  scale=scale)
+        return direct("time_attention_fwd", q, k, v, cls_k, cls_v, heads,
+                      scale)
 
     @staticmethod
     def backward(ctx, do):
-        return (*time_attention_bwd(*ctx.saved_tensors, do.contiguous(),
-                                    heads=ctx.heads, scale=ctx.scale),
-                None, None)
+        return (*direct("time_attention_bwd", *ctx.saved_tensors,
+                        do.contiguous(), ctx.heads, ctx.scale), None, None)
 
 
 class GroupedAttention(torch.autograd.Function):
@@ -516,11 +604,12 @@ class GroupedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, cls_k, cls_v):
         ctx.save_for_backward(q, k, v, cls_k, cls_v)
-        return grouped_attention_fwd(q, k, v, cls_k, cls_v)
+        return direct("grouped_attention_fwd", q, k, v, cls_k, cls_v)
 
     @staticmethod
     def backward(ctx, do):
-        return grouped_attention_bwd(*ctx.saved_tensors, do.contiguous())
+        return direct("grouped_attention_bwd", *ctx.saved_tensors,
+                      do.contiguous())
 
 
 class TimeAttentionHS(torch.autograd.Function):
@@ -530,8 +619,9 @@ class TimeAttentionHS(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, cls_k, cls_v):
         ctx.save_for_backward(q, k, v, cls_k, cls_v)
-        return time_attention_hs_fwd(q, k, v, cls_k, cls_v)
+        return direct("time_attention_hs_fwd", q, k, v, cls_k, cls_v)
 
     @staticmethod
     def backward(ctx, do):
-        return time_attention_hs_bwd(*ctx.saved_tensors, do.contiguous())
+        return direct("time_attention_hs_bwd", *ctx.saved_tensors,
+                      do.contiguous())

@@ -19,9 +19,11 @@ Three entry points, as in the JAX package:
 
 ``impl='pallas'`` goes through the autograd Functions (forward and
 backward kernels on a CUDA tensor, their plain twins on a CPU tensor,
-which round where the kernels do); ``impl='xla'`` (and ``'xla2'`` on
-time) is plain torch at the rounding points of the JAX package's XLA
-paths, which autograd differentiates directly.  The CLS row is plain
+which round where the kernels do), or, with grad mode off, through the
+forward kernels' registered ops (``cuda_attention.forward_only``);
+``impl='xla'`` (and ``'xla2'`` on time) is plain torch at the rounding
+points of the JAX package's XLA paths, which autograd differentiates
+directly.  The CLS row is plain
 torch in both and gets its gradient from autograd, as the JAX package
 gets it from ``jax.grad`` of plain jnp.
 """
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from egovlp_tpu_torch.kernels import cuda_attention as ca
 from egovlp_tpu_torch.kernels.cuda_attention import (
     GroupedAttention,
     SpaceAttention,
@@ -114,9 +117,14 @@ def divided_attention_parts(qc, kc, vc, qp, kp, vp, *, heads: int,
     B, f, n, D = qp.shape
     scale = float(D // heads) ** -0.5
     if impl == "pallas":
-        op = SpaceAttention if axis == "space" else TimeAttention
-        return (_cls_row_parts(qc, kc, vc, kp, vp, heads, scale),
-                op.apply(qp, kp, vp, kc, vc, heads, scale))
+        if ca.forward_only():
+            fwd = (ca.space_attention_fwd if axis == "space"
+                   else ca.time_attention_fwd)
+            out_p = fwd(qp, kp, vp, kc, vc, heads=heads, scale=scale)
+        else:
+            fn = SpaceAttention if axis == "space" else TimeAttention
+            out_p = fn.apply(qp, kp, vp, kc, vc, heads, scale)
+        return _cls_row_parts(qc, kc, vc, kp, vp, heads, scale), out_p
     if axis == "time":
         return _time_xla_parts(qc, kc, vc, qp, kp, vp, heads, scale,
                                relayout=impl == "xla2")
@@ -168,8 +176,9 @@ def divided_attention(q, k, v, *, frames: int, patches: int, axis: str,
         def nat(t):  # patch tokens as [BH, f, n, hd]: an explicit copy
             return t[:, :, 1:].reshape(B * H, frames, patches, hd).contiguous()
 
-        out_t = TimeAttentionHS.apply(nat(q), nat(k), nat(v), cls(cls_k),
-                                      cls(cls_v))
+        x = (nat(q), nat(k), nat(v), cls(cls_k), cls(cls_v))
+        out_t = (ca.time_attention_hs_fwd(*x) if ca.forward_only()
+                 else TimeAttentionHS.apply(*x))
         return torch.cat([cls_out, out_t.reshape(B, H, frames * patches, hd)],
                          dim=2)
 
@@ -184,7 +193,9 @@ def divided_attention(q, k, v, *, frames: int, patches: int, axis: str,
 
     qg, kg, vg = group(q), group(k), group(v)
     if impl == "pallas":
-        out_g = GroupedAttention.apply(qg, kg, vg, cls(cls_k), cls(cls_v))
+        x = (qg, kg, vg, cls(cls_k), cls(cls_v))
+        out_g = (ca.grouped_attention_fwd(*x) if ca.forward_only()
+                 else GroupedAttention.apply(*x))
     else:
         # splice CLS k/v in front of every group
         def splice(c, t):

@@ -16,9 +16,12 @@ and the backward are one hand-written kernel each, K3-fwd
 (``csrc/layer_norm_fwd.cu``) and K3-bwd (``csrc/layer_norm_bwd.cu``,
 which writes each block's float32 share of dscale and dbias, added here),
 counted in ``cuda_attention.launches``; on a CPU tensor their plain twins
-below.  The kernels take rows of D a multiple of 16 bytes' values (8 at
-bf16, 4 at float32; the backward up to 1024), 16-byte aligned, float32
-parameters; any other CUDA input raises.
+below.  Both are ops, ``torch.ops.egovlp_torch.layer_norm_{fwd,bwd}``
+(``kernels/ops.py``), whose outputs are y and the stacked ``[mu; rstd]``,
+and dx and the stacked ``[dscale; dbias]``.  The kernels take contiguous
+rows of D a multiple of 16 bytes' values (8 at bf16, 4 at float32; the
+backward up to 1024), 16-byte aligned, float32 parameters; any other
+CUDA input raises.
 """
 
 from __future__ import annotations
@@ -26,7 +29,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from egovlp_tpu_torch.kernels.cuda_attention import _DTYPE_CODES, _launch
+from egovlp_tpu_torch.kernels import ops
+from egovlp_tpu_torch.kernels.cuda_attention import (
+    _DTYPE_CODES,
+    _launch,
+    forward_only,
+)
 
 # the widest row K3-bwd holds, and the rows of one of its blocks (one row
 # of its partial sums): ``kMaxD``, ``kBwdRowsPerBlock`` in
@@ -67,8 +75,10 @@ def layer_norm_bwd_plain(x, scale, mu, rstd, dy):
     return dx, dscale, dbias
 
 
-def _check_cuda(x, params, bwd: bool) -> None:
-    """What the kernels take (see the module notes), or raise."""
+def _check_cuda(x, params, bwd: bool, rows=()) -> None:
+    """What the kernels take (see the module notes), or raise: ``params``
+    are the float32 ``[D]`` parameters, ``rows`` the tensors laid out as
+    ``x`` (dy) or as its row statistics (mu, rstd)."""
     D = x.shape[-1]
     if x.dtype not in _DTYPE_CODES or any(p.dtype != torch.float32
                                           for p in params):
@@ -81,34 +91,39 @@ def _check_cuda(x, params, bwd: bool) -> None:
     if D % slice_ or (bwd and D > MAX_BWD_DIM):
         raise ValueError(f"LayerNorm kernels take D a multiple of {slice_}"
                          f"{f' up to {MAX_BWD_DIM}' if bwd else ''}, got {D}")
+    for t, shape, dtype in rows:
+        if t.shape != shape or t.dtype != dtype or t.device != x.device:
+            raise ValueError(f"{tuple(t.shape)} {t.dtype} on {t.device}: "
+                             f"expected {tuple(shape)} {dtype} on {x.device}")
+    if not all(t.is_contiguous() for t in (x, *params, *(r[0] for r in rows))):
+        raise ValueError("LayerNorm kernels take contiguous tensors")
 
 
-def layer_norm_fwd(x, scale, bias, eps: float):
-    """K3-fwd: ``(y, mu, rstd)`` as ``layer_norm_fwd_plain``; ``x``
-    contiguous."""
-    if x.device.type == "cpu":
-        return layer_norm_fwd_plain(x, scale, bias, eps)
+def _bwd_rows(x, mu, rstd, dy) -> tuple:
+    """K3-bwd's row tensors and the shape and dtype each must have."""
+    stats = _stats_shape(x)
+    return ((dy, x.shape, x.dtype), (mu, stats, torch.float32),
+            (rstd, stats, torch.float32))
+
+
+def _fwd_cuda(x, scale, bias, eps: float):
+    """K3-fwd's launcher: ``(y, stats [2, ..., 1])``, the row statistics
+    mu and rstd stacked in one float32 allocation."""
     _check_cuda(x, (scale, bias), bwd=False)
     D = x.shape[-1]
-    rows = x.numel() // D
     y = torch.empty_like(x)
     stats = torch.empty((2, *_stats_shape(x)), device=x.device,
                         dtype=torch.float32)
     _launch("layer_norm_fwd", (x, scale, bias), (y, stats[0], stats[1]),
-            (rows, D, eps))
-    return y, stats[0], stats[1]
+            (x.numel() // D, D, eps))
+    return y, stats
 
 
-def layer_norm_bwd(x, scale, mu, rstd, dy):
-    """K3-bwd: ``(dx, dscale, dbias)`` as ``layer_norm_bwd_plain``; the
-    kernel writes each block's float32 share of dscale and dbias, summed
-    here over the blocks."""
-    if x.device.type == "cpu":
-        return layer_norm_bwd_plain(x, scale, mu, rstd, dy)
-    _check_cuda(x, (scale,), bwd=True)
-    if dy.shape != x.shape or dy.dtype != x.dtype:
-        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} is not x's "
-                         f"{tuple(x.shape)} {x.dtype}")
+def _bwd_cuda(x, scale, mu, rstd, dy):
+    """K3-bwd's launcher: ``(dx, [dscale; dbias] [2, D])``; the kernel
+    writes each block's float32 share of dscale and dbias, summed here
+    over the blocks."""
+    _check_cuda(x, (scale,), bwd=True, rows=_bwd_rows(x, mu, rstd, dy))
     D = x.shape[-1]
     rows = x.numel() // D
     blocks = -(-rows // BWD_ROWS_PER_BLOCK)
@@ -116,28 +131,81 @@ def layer_norm_bwd(x, scale, mu, rstd, dy):
     part = torch.empty((2, blocks, D), device=x.device, dtype=torch.float32)
     _launch("layer_norm_bwd", (x, dy, scale, mu, rstd), (dx, part),
             (rows, D))
-    dscale, dbias = part.sum(dim=1).to(scale.dtype).unbind(0)
-    return dx, dscale, dbias
+    return dx, part.sum(dim=1).to(scale.dtype)
+
+
+def _fwd_cpu(x, scale, bias, eps: float):
+    y, mu, rstd = layer_norm_fwd_plain(x, scale, bias, eps)
+    return y, torch.stack([mu, rstd])
+
+
+def _bwd_cpu(x, scale, mu, rstd, dy):
+    dx, dscale, dbias = layer_norm_bwd_plain(x, scale, mu, rstd, dy)
+    return dx, torch.stack([dscale, dbias])
+
+
+def _fwd_fake(x, scale, bias, eps: float):
+    if x.device.type == "cuda":
+        _check_cuda(x, (scale, bias), bwd=False)
+    return (torch.empty_like(x),
+            x.new_empty((2, *_stats_shape(x)), dtype=torch.float32))
+
+
+def _bwd_fake(x, scale, mu, rstd, dy):
+    if x.device.type == "cuda":
+        _check_cuda(x, (scale,), bwd=True, rows=_bwd_rows(x, mu, rstd, dy))
+    return torch.empty_like(x), scale.new_empty((2, x.shape[-1]))
+
+
+_LN_FWD = ops.define(
+    "layer_norm_fwd", "(Tensor x, Tensor scale, Tensor bias, float eps) -> "
+    "(Tensor, Tensor)", _fwd_cpu, _fwd_cuda, _fwd_fake)
+_LN_BWD = ops.define(
+    "layer_norm_bwd", "(Tensor x, Tensor scale, Tensor mu, Tensor rstd, "
+    "Tensor dy) -> (Tensor, Tensor)", _bwd_cpu, _bwd_cuda, _bwd_fake)
+
+
+def layer_norm_fwd(x, scale, bias, eps: float):
+    """K3-fwd: ``(y, mu, rstd)`` as ``layer_norm_fwd_plain``; ``x``
+    contiguous."""
+    y, stats = _LN_FWD(x, scale, bias, eps)
+    return y, stats[0], stats[1]
+
+
+def layer_norm_bwd(x, scale, mu, rstd, dy):
+    """K3-bwd: ``(dx, dscale, dbias)`` as ``layer_norm_bwd_plain``."""
+    dx, dparams = _LN_BWD(x, scale, mu, rstd, dy)
+    return dx, dparams[0], dparams[1]
 
 
 class LayerNorm(torch.autograd.Function):
-    """K3: ``apply(x, scale, bias, eps)``; saves x, scale, mu and rstd."""
+    """K3: ``apply(x, scale, bias, eps)``; saves x, scale, mu and rstd.
+    Both passes launch without the dispatcher (``cuda_attention.direct``
+    says why)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
         x = x.contiguous()
-        y, mu, rstd = layer_norm_fwd(x, scale, bias, eps)
-        ctx.save_for_backward(x, scale, mu, rstd)
+        fwd = _fwd_cpu if x.device.type == "cpu" else _fwd_cuda
+        y, stats = fwd(x, scale, bias, eps)
+        ctx.save_for_backward(x, scale, stats[0], stats[1])
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        return (*layer_norm_bwd(*ctx.saved_tensors, dy.contiguous()), None)
+        saved = ctx.saved_tensors  # unpacked once: recompute allows no more
+        bwd = _bwd_cpu if dy.device.type == "cpu" else _bwd_cuda
+        dx, dparams = bwd(*saved, dy.contiguous())
+        return dx, dparams[0], dparams[1], None
 
 
 def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis; returns ``x.dtype``."""
+    """LayerNorm over the last axis; returns ``x.dtype``.  The autograd
+    Function ``LayerNorm``, or with grad mode off the K3-fwd op
+    (``cuda_attention.forward_only``)."""
+    if forward_only():
+        return _LN_FWD(x.contiguous(), scale, bias, eps)[0]
     return LayerNorm.apply(x, scale, bias, eps)
 
 

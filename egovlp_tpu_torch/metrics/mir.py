@@ -97,3 +97,11 @@ def load_epic_annotations(annotation_dir: str):
         # the annotation release's own file
         relevancy = pickle.load(f)
     return video_ids, text_ids, relevancy
+
+
+def mir_metrics(similarity_matrix: np.ndarray, idx_arr: np.ndarray,
+                annotation_dir: str) -> dict:
+    """``mir_metrics_from_matrices`` on the annotations of
+    ``annotation_dir`` (``load_epic_annotations``)."""
+    return mir_metrics_from_matrices(similarity_matrix, idx_arr,
+                                     *load_epic_annotations(annotation_dir))

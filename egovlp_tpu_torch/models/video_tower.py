@@ -53,10 +53,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from egovlp_tpu_torch.core.precision import Linear, gelu, linear
-from egovlp_tpu_torch.kernels.cuda_attention import (
-    space_attention_bwd,
-    time_attention_bwd,
-)
+from egovlp_tpu_torch.kernels.cuda_attention import direct
 from egovlp_tpu_torch.kernels.divided_attention import (
     _cls_row_parts,
     divided_attention_parts,
@@ -169,11 +166,10 @@ class QKVAttention(torch.autograd.Function):
             if ctx.impl == "pallas":
                 scale = float(qp.shape[-1] // ctx.heads) ** -0.5
                 if dop is not None:
-                    bwd = (space_attention_bwd if ctx.axis == "space"
-                           else time_attention_bwd)
-                    douts += bwd(qp.detach(), kp.detach(), vp.detach(),
-                                 kc.detach(), vc.detach(), dop.contiguous(),
-                                 heads=ctx.heads, scale=scale)
+                    douts += direct(f"{ctx.axis}_attention_bwd", qp.detach(),
+                                    kp.detach(), vp.detach(), kc.detach(),
+                                    vc.detach(), dop.contiguous(), ctx.heads,
+                                    scale)
                     outs += [qp, kp, vp, kc, vc]
                 if doc is not None:
                     outs.append(_cls_row_parts(qc, kc, vc, kp, vp, ctx.heads,

@@ -33,10 +33,13 @@ Counterpart of ``egovlp_tpu/train/recipes.py`` for the ``egoclip``,
   convention): the global batch is world size times it, and an epoch is
   the per-rank loader's length.  Tensor, sequence and ZeRO parallelism
   (``mesh.model`` > 1, ``zero``, ``dcn_data`` > 1) raise (``ROADMAP.md``,
-  Queue A, A13), as does a fine-tune config with a ranking visualizer
-  (``visualizer.type``; A12); ``mesh.sequence_parallel`` at ``model`` 1
+  Queue A, A13); ``mesh.sequence_parallel`` at ``model`` 1
   logs JAX's warning and trains (:158-163); ``nlq`` / ``mq`` train
-  nothing and raise, naming ``cli.extract``.
+  nothing and raise, naming ``cli.extract``.  Rank 0 writes the logged
+  losses and every validation's metrics to the run's ``tf`` directory
+  (``io/logging.MetricLogger``, :372-373); the ``epic`` and ``charades``
+  validations write a ranking report when the config's
+  ``visualizer.type`` is set (``io/visualizer.py``, :305-324).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from torch.nn.parallel import DistributedDataParallel
 from egovlp_tpu_torch import build
 from egovlp_tpu_torch.core.dist import (
     in_process_group,
+    is_main_process,
     local_rank,
     process_shard,
 )
@@ -62,8 +66,10 @@ from egovlp_tpu_torch.evals.egomcq import evaluate_egomcq
 from egovlp_tpu_torch.evals.epic_mir import embed_dataset, evaluate_epic_mir
 from egovlp_tpu_torch.evals.oscc_pnr import evaluate_oscc, evaluate_pnr
 from egovlp_tpu_torch.io.config import Config
-from egovlp_tpu_torch.io.logging import setup_logging
+from egovlp_tpu_torch.io.logging import MetricLogger, setup_logging
+from egovlp_tpu_torch.io.visualizer import build_visualizer
 from egovlp_tpu_torch.metrics.mir import load_epic_annotations
+from egovlp_tpu_torch.models.dual_encoder import sim_matrix
 from egovlp_tpu_torch.train.state import make_optimizer
 from egovlp_tpu_torch.train.steps import (
     make_charades_train_step,
@@ -92,10 +98,15 @@ def step_generator(device: "torch.device | str", seed: int, epoch: int,
 
 def make_train_epoch_fn(loaders: Sequence[Iterable], step_fn: Callable,
                         device: "torch.device | str", max_samples: int = 0,
-                        log_step: int = 100, seed: int = 0) -> Callable:
+                        log_step: int = 100, seed: int = 0,
+                        mlog: Optional[MetricLogger] = None) -> Callable:
     """``train_epoch(model, optimizer, epoch, logger) -> {'loss_{i}': ...}``.
     A loader is a ``Loader`` (its ``epoch(epoch)`` batches) or any iterable
-    of collated numpy batches."""
+    of collated numpy batches.  Every ``log_step`` batches the losses go to
+    ``logger`` and to ``mlog`` (tag ``train/loss``, or ``train/loss_{i}``
+    with several loaders, at step ``(epoch - 1) * len(loaders[0]) + i``)."""
+    mlog = mlog or MetricLogger(None, enabled=False)
+
     def train_epoch(model, optimizer, epoch, logger):
         t0 = time.time()
         losses = [[] for _ in loaders]
@@ -112,9 +123,12 @@ def make_train_epoch_fn(loaders: Sequence[Iterable], step_fn: Callable,
                 losses[dl_idx].append(loss)
                 n += 1
             if i % log_step == 0:
+                mlog.set_step((epoch - 1) * len(loaders[0]) + i, "train")
                 for dl_idx in range(nl):
+                    lv = float(losses[dl_idx][-1])
+                    mlog.scalar(f"loss_{dl_idx}" if nl > 1 else "loss", lv)
                     logger.info("epoch %d step %d dl%d loss %.4f (%.2f s/it)",
-                                epoch, i, dl_idx, float(losses[dl_idx][-1]),
+                                epoch, i, dl_idx, lv,
                                 (time.time() - t0) / max(n, 1))
         return {f"loss_{dl_idx}": float(torch.stack(ls).mean()) if ls else 0.0
                 for dl_idx, ls in enumerate(losses)}
@@ -156,6 +170,16 @@ PORTED_TASKS = ("egoclip", "epic", "charades", "oscc", "pnr")
 VIDEO_ONLY_TASKS = ("oscc", "pnr")
 
 
+def _visualizer(config):
+    """The ranking-report writer of the config's ``visualizer`` section
+    (``{trainer.save_dir}/web`` unless it names a ``web_dir``) on rank 0;
+    None on the other ranks and when its ``type`` is empty."""
+    if not is_main_process():
+        return None
+    save_dir = config.get_path("trainer.save_dir", "results")
+    return build_visualizer(config, f"{save_dir}/web")
+
+
 def classes_file(config, dl_args: Dict[str, Any]) -> str:
     """The Charades class list: the config's ``charades_classes``, else
     ``Charades_v1_classes.txt`` in the loader's meta (or data) dir."""
@@ -174,13 +198,7 @@ def check_ported(config) -> None:
             f"task {task!r} trains nothing: its features come from "
             "`python -m egovlp_tpu_torch.cli.extract`")
     if task not in PORTED_TASKS:
-        raise NotImplementedError(
-            f"task {task!r} is not ported yet (ROADMAP.md, Queue A, A11)")
-    vis = (config.get("visualizer") or {}).get("type")
-    if task != "egoclip" and vis:
-        raise NotImplementedError(
-            f"visualizer.type={vis!r}: the ranking report is not ported "
-            "(ROADMAP.md, Queue A, A12)")
+        raise NotImplementedError(f"unknown task {task!r}")
     mesh = config.get("mesh") or {}
     if (int(mesh.get("model", 1)) > 1 or mesh.get("zero")
             or int(mesh.get("dcn_data", 1)) > 1):
@@ -315,6 +333,8 @@ def run_task(config, resume: Optional[str] = None,
                 m = evaluate_egomcq(model, vl, input_res=input_res)
                 out.update(m if dl_idx == 0 else
                            {f"{k}_{dl_idx}": v for k, v in m.items()})
+            mlog.set_step(epoch, "val")
+            mlog.scalars(out)
             return out
     elif task == "epic":
         step = make_epic_train_step(
@@ -325,12 +345,20 @@ def run_task(config, resume: Optional[str] = None,
         val_loaders = [build.build_loader(dl_args, "test", tokenizer)]
         annotations = dl_args.get("meta_dir") or dl_args["data_dir"]
         use_dual_softmax = bool(config.get("dual_softmax", False))
+        visualizer = _visualizer(config)
 
         def valid(model, epoch, logger):
-            t, v, _ = embed_dataset(model, val_loaders[0], input_res)
-            return evaluate_epic_mir(
-                t, v, *load_epic_annotations(annotations),
-                use_dual_softmax=use_dual_softmax)
+            t, v, _, meta = embed_dataset(model, val_loaders[0], input_res,
+                                          return_meta=True)
+            m = evaluate_epic_mir(t, v, *load_epic_annotations(annotations),
+                                  use_dual_softmax=use_dual_softmax)
+            if visualizer is not None:
+                sims = sim_matrix(torch.from_numpy(t), torch.from_numpy(v))
+                visualizer.visualize_ranking(sims.numpy(), epoch,
+                                             meta["texts"], meta["paths"])
+            mlog.set_step(epoch, "val")
+            mlog.scalars(m)
+            return m
     elif task in VIDEO_ONLY_TASKS:
         step = (make_oscc_train_step if task == "oscc"
                 else make_pnr_train_step)(input_res=input_res)
@@ -338,20 +366,29 @@ def run_task(config, resume: Optional[str] = None,
         evaluate = evaluate_oscc if task == "oscc" else evaluate_pnr
 
         def valid(model, epoch, logger):
-            return evaluate(model, val_loaders[0], input_res)
+            m = evaluate(model, val_loaders[0], input_res)
+            mlog.set_step(epoch, "val")
+            mlog.scalars(m)
+            return m
     else:  # charades
         step = make_charades_train_step(
             input_res=input_res,
             temperature=float(loss_args.get("temperature", 0.05)))
         val_loaders = [build.build_loader(dl_args, "test", tokenizer)]
         classes = classes_file(config, dl_args)
+        visualizer = _visualizer(config)
 
         def valid(model, epoch, logger):
-            return evaluate_charades(model, val_loaders[0],
-                                     load_charades_classes(classes),
-                                     tokenizer, input_res)
+            m = evaluate_charades(model, val_loaders[0],
+                                  load_charades_classes(classes), tokenizer,
+                                  input_res, visualizer=visualizer,
+                                  epoch=epoch)
+            mlog.set_step(epoch, "val")
+            mlog.scalars(m)
+            return m
 
     dirs = config.make_run_dirs()
+    mlog = MetricLogger(str(dirs["tf"]), enabled=is_main_process())
     if trainer_cfg.get("async_save"):
         logger.info("trainer.async_save: the port writes checkpoints "
                     "synchronously")
@@ -366,7 +403,7 @@ def run_task(config, resume: Optional[str] = None,
     log_step = int(np.sqrt(sum(l.batch_size for l in train_loaders))) or 1
     train_epoch = make_train_epoch_fn(train_loaders, step, device,
                                       max_samples=max_samples or 0,
-                                      log_step=log_step)
+                                      log_step=log_step, mlog=mlog)
     trainer = Trainer(tcfg, train_epoch, valid, logger=logger)
     if resume:
         payload = trainer.resume(model, optimizer, resume)
@@ -379,4 +416,5 @@ def run_task(config, resume: Optional[str] = None,
     finally:
         for l in train_loaders + val_loaders:
             l.close()
+        mlog.close()
     return model, optimizer

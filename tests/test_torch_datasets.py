@@ -207,16 +207,13 @@ def test_dataset_factory_dispatch_matches_jax(egoclip_root):  # noqa: F811
         assert type(got) is cls and type(want).__name__ == cls.__name__
     assert dataset_factory("EgoClip") is EgoClipDataset
     assert dataset_factory("EgoMCQ") is EgoMCQDataset
-    # ported: see tests/test_torch_ft_data.py, test_torch_oscc_pnr.py and
-    # test_torch_features.py
+    # ported: see tests/test_torch_ft_data.py, test_torch_oscc_pnr.py,
+    # test_torch_features.py and test_torch_legacy_data.py (WebVid, CC3M)
     for name in ("MultiInstanceRetrieval", "EpicKitchens_MIR", "CharadesEgo",
-                 "Ego4D_OSCC", "Ego4D_PNR", "Ego4D_NLQ", "Ego4D_MQ"):
+                 "Ego4D_OSCC", "Ego4D_PNR", "Ego4D_NLQ", "Ego4D_MQ",
+                 "WebVid", "ConceptualCaptions3M"):
         assert dataset_factory(name).__name__ == \
             jax_dataset_factory(name).__name__
-    for name in ("WebVid", "ConceptualCaptions3M"):
-        jax_dataset_factory(name)  # a name the JAX registry has
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*A11"):
-            dataset_factory(name)
     with pytest.raises(NotImplementedError, match="unknown"):
         dataset_factory("NoSuchDataset")
 

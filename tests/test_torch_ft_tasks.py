@@ -12,7 +12,7 @@
 * checkpoints, ``--resume`` training the next epoch only, and
   ``cli.eval`` on the epoch-2 checkpoint giving the in-run validation's
   metrics, with the split defaulting to ``test``;
-* the refusal of a ranking visualizer (A12).
+* the ranking visualizer's page from the EPIC validation and ``cli.eval``.
 """
 
 import copy
@@ -198,8 +198,24 @@ def test_cli_eval_matches_the_in_run_validation(ft_run, capsys):
 
 
 def test_visualizer_is_refused(graded_root, ft_vocab, tmp_path):  # noqa: F811
-    cfg = Config(ft_config("epic", graded_root, ft_vocab, "", str(tmp_path)))
+    """The ranking visualizer, refused until it was ported: the EPIC
+    validation of a run with ``visualizer.type`` set writes its page for
+    the epoch, and ``cli.eval`` on the run's checkpoint its epoch-0 page,
+    both into ``{save_dir}/web``."""
+    cfg = Config(ft_config("epic", graded_root, ft_vocab, "", str(tmp_path),
+                           epochs=1))
     cfg.override("visualizer.type", "html")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*A12"):
-        recipes.run_task(cfg, device="cpu")
-    assert not (tmp_path / "models").exists()
+    cfg.override("visualizer.args", {"num_samples": 2, "top_k": 3})
+    recipes.run_task(cfg, device="cpu")
+    web = tmp_path / "web"
+    assert sorted(p.name for p in web.iterdir()) == ["index.html",
+                                                     "ranking_ep1.html"]
+    page = (web / "ranking_ep1.html").read_text()
+    assert page.count('class="query"') == 2 and "GT rank" in page
+    assert page.count("<video") >= 2 * 3  # top 3 of each query
+    (run_dir,) = (tmp_path / "models" / "tiny_epic").iterdir()
+    path = tmp_path / "eval.json"
+    path.write_text(json.dumps(dict(cfg)))
+    cli_eval.main(["--config", str(path), "--checkpoint",
+                   str(run_dir / "checkpoint-epoch1.pth"), "--device", "cpu"])
+    assert (web / "ranking_ep0.html").exists()

@@ -269,6 +269,28 @@ def test_run_task_matches_jax(tiny_run):
         log[2]["Inter-video"] for log in port if log[0] == "val")
 
 
+def test_metric_logger_tags_match_jax(tiny_run):
+    """Both ``run_task``s log to ``{save_dir}/tf/{name}/{timestamp}/
+    metrics.jsonl`` through their ``MetricLogger``s: the same tags at the
+    same steps in the same order; the validation metrics equal, the
+    logged losses within the epoch losses' rtol."""
+    def records(side):
+        (run,) = (tiny_run["tmp"] / side / "tf" / "tiny_egoclip").iterdir()
+        return [json.loads(line) for line in open(run / "metrics.jsonl")]
+
+    got, want = records("port"), records("jax")
+    assert [(r["step"], r["tag"]) for r in got] == \
+        [(r["step"], r["tag"]) for r in want]
+    tags = [r["tag"] for r in got]
+    assert tags[:2] == ["train/loss", "train/steps_per_sec"]
+    assert tags.count("val/Inter-video") == 2  # one a validation, epochs 1-2
+    for g, w in zip(got, want):
+        if g["tag"].startswith("val/") and "steps_per_sec" not in g["tag"]:
+            assert g["value"] == w["value"], g["tag"]
+        elif g["tag"] == "train/loss":
+            np.testing.assert_allclose(g["value"], w["value"], rtol=1e-4)
+
+
 def test_run_task_resumes_at_the_next_epoch(tiny_run, monkeypatch):
     logs = []
     record_port(monkeypatch, logs)

@@ -145,7 +145,18 @@ def test_attention_forwards_a_step(params, monkeypatch, remat, forwards):
     last block's space backward is dead (the tower returns the CLS)."""
     calls = dict.fromkeys(("space_attention_fwd", "time_attention_fwd",
                            "space_attention_bwd", "time_attention_bwd"), 0)
-    for name in calls:
+    # the autograd Functions (and the 'attn_out' backward) launch through
+    # ``direct``; a forward with grad mode off, as 'attn_out' runs its
+    # attention, through the ops' wrappers
+    direct = cuda_attention.direct
+
+    def counted_direct(name, *a):
+        calls[name] += name in calls
+        return direct(name, *a)
+
+    monkeypatch.setattr(cuda_attention, "direct", counted_direct)
+    monkeypatch.setattr(video_tower, "direct", counted_direct)
+    for name in ("space_attention_fwd", "time_attention_fwd"):
         fn = getattr(cuda_attention, name)
 
         def counted(*a, _fn=fn, _name=name, **kw):
@@ -153,8 +164,6 @@ def test_attention_forwards_a_step(params, monkeypatch, remat, forwards):
             return _fn(*a, **kw)
 
         monkeypatch.setattr(cuda_attention, name, counted)
-        if hasattr(video_tower, name):
-            monkeypatch.setattr(video_tower, name, counted)
     _port_grads(_port(params, remat), _video(), _weights())
     depth = VIDEO["depth"]
     assert calls == {"space_attention_fwd": forwards * depth,
