@@ -65,18 +65,23 @@ Phases, each of which passes or raises (any failure exits non-zero):
    printed beside their scalar bodies' times from ``PERF.md``, SDPA and
    the bound;
 3c. K3, the LayerNorm kernels (``phase_layer_norm``): forward and
-   backward against their plain twins at ``[25088, 1024]`` and ``[32,
-   1024]`` (a ViT-L step's patch and CLS rows) and ``[25088, 768]``
-   (ViT-B's), float32 and bf16, with the limits in its docstring; two
-   K3-bwd launches give the same bits; kernel, device, plain, library
-   (``F.layer_norm`` and its autograd backward) times and the bound at
-   bf16;
+   backward against their plain twins on the CLS + patch pairs launched
+   as one, ``[25088 + 32, 1024]`` (a ViT-L step), ``[25088 + 32, 768]``
+   (ViT-B) and ``[50176 + 16, 768]`` (the 16-frame fine-tune), and on
+   single tensors, ``[960, 768]`` (the text tower), ``[32, 1024]`` (the
+   final norm) and the patch rows alone ``[25088, 1024]`` and ``[25088,
+   768]``, float32 and bf16, with the limits in its docstring; two K3-bwd
+   launches give the same bits; K3-bwd's grid; kernel, device, plain,
+   library (``F.layer_norm`` and its autograd backward; a pair's two
+   calls) times and the bound (in us) at bf16, each pair beside its patch
+   rows alone;
 4. serving slice: the full-width dual encoder of ``configs/eval/egomcq.json``
    in bf16 with seeded random weights (time attention initialised
    non-zero, so the time kernel sees real inputs) behind ``serve()``:
    ``/healthz``, ``/embed_text`` and ``embed_frames`` on seeded uint8 clips
    for N in {1, 3, 16}.  Checks shapes, finiteness, bucket invariance, the
-   kernel launch counts of that run (12 space + 12 time per tower pass),
+   kernel launch counts of that run (12 space + 12 time per tower pass;
+   K3-fwd 37 a video pass, 13 a text pass),
    and the cosine of each embedding against the plain-attention model
    (``attention_impl='xla'``) on the same weights; prints latencies and a
    ``torch.profiler`` breakdown of 3 bucket-16 ``embed_frames`` calls;
@@ -86,7 +91,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
    ``Trainer.train`` for 2 epochs of 3 steps with checkpoints.  Checks
    finite losses, the kernel launches of every step (12 of each, but 11 of
    K1-bwd: the last block's space-attention patch outputs reach no loss;
-   86 of K3-fwd and 85 of K3-bwd, ``ln_per_step``),
+   50 of K3-fwd and 50 of K3-bwd, ``ln_per_step``: one a CLS + patch pair,
+   the last block's norm2 backward over its CLS rows alone),
    the first step's loss (within 2e-2) and gradients (cosine >= 0.999 over
    all parameters, >= 0.99 for every block's ``attn.qkv.weight`` and
    ``timeattn.qkv.weight``) against the plain-attention model on the same
@@ -96,7 +102,10 @@ Phases, each of which passes or raises (any failure exits non-zero):
    one step's end to the next (the batch's copy to the device, the step's
    generator and the loop included) with clips/s, then a
    ``torch.profiler`` breakdown of 3 steps (device busy time by kernel,
-   idle share, launches a step);
+   idle share, launches a step; K3-fwd and K3-bwd kernels a step must read
+   ``ln_per_step``'s, and no K3 backward autograd node may run a PyTorch
+   reduction: K3-bwd sums dscale and dbias on the device; the same checks
+   on phase 9's, 10's and 11's profiles);
 6. head-split op: ``divided_attention(impl='pallas')`` forward and
    backward (``autograd.grad`` of ``sum(out * cos(out))``) at the EgoVLP
    pretraining shape in bf16, B 32, H 12, n 196, hd 64, on the space axis
@@ -349,9 +358,15 @@ TIMED = (16, 4, 196)  # B, f, n of the timed bf16 calls
 TIMED_F16 = (16, 16, 196)  # and of K1/K2 at the 16-frame fine-tune shape
 TIMED_F16_B4 = (4, 16, 196)  # and at the OSCC / PNR batch
 TIMED_VITL = (32, 4, 196)  # and at the ViT-L training step (D 1024, 16 heads)
-# K3's rows: a ViT-L step's patch rows (32 clips x 4 frames x 196) and CLS
-# rows at D 1024, the patch rows at ViT-B's D 768; the first is timed
-LN_SHAPES = ((25088, VITL_DIM), (32, VITL_DIM), (25088, DIM))
+# K3's rows, (patch rows, CLS rows, D): the CLS + patch pairs of a ViT-L
+# step (32 clips x 4 frames x 196 patches + 32 CLS rows) at D 1024, of a
+# ViT-B step at D 768 and of the 16-frame fine-tune step (16 clips x 16 x
+# 196 + 16) at D 768, launched as one; single tensors (no CLS rows): the
+# text tower's 32 texts x 30 tokens, the final norm's 32 CLS rows at D
+# 1024, and the patch rows alone at both widths (the pairs' yardstick)
+LN_CASES = ((25088, 32, VITL_DIM), (25088, 32, DIM), (50176, 16, DIM),
+            (960, 0, DIM), (32, 0, VITL_DIM), (25088, 0, VITL_DIM),
+            (25088, 0, DIM))
 # NVIDIA H100 SXM data sheet: HBM bytes/s, dense bf16 tensor FLOP/s and
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -378,17 +393,25 @@ def attention_counts(counts: dict) -> dict:
 
 def ln_per_step(depth: int, text_layers: int, remat: str = "none",
                 n_micro: int = 1) -> dict:
-    """K3 launches of one EgoClip training step: a video tower pass norms
-    6 times a block (norm3, norm1, norm2 on the CLS and patch parts) and
-    once at the end, a text tower pass once and twice a layer.  The
-    backward skips the last block's patch-part norm2 (it reaches no loss).
-    GradCache embeds every micro-batch twice; 'block' recompute runs each
-    block's 6 norms again in the backward."""
-    one = 6 * depth + 1 + 1 + 2 * text_layers
+    """K3 launches of one EgoClip training step: a video tower pass
+    launches 3 a block (norm3, norm1, norm2, each on the CLS and patch
+    parts in one launch) and 1 at the end, a text tower pass 1 and 2 a
+    layer; the backward as many (the last block's norm2 runs its backward
+    over the CLS rows alone: its patch output reaches no loss).  GradCache
+    embeds every micro-batch twice; 'block' recompute runs each block's 3
+    norms again in the backward."""
+    video_pass = 3 * depth + 1
+    one = video_pass + 1 + 2 * text_layers
     fwd = n_micro * one * (2 if n_micro > 1 else 1)
     if remat == "block":
-        fwd += n_micro * 6 * depth
-    return {"layer_norm_fwd": fwd, "layer_norm_bwd": n_micro * (one - 1)}
+        fwd += n_micro * 3 * depth
+    return {"layer_norm_fwd": fwd, "layer_norm_bwd": n_micro * one}
+
+
+# K3 launches of one 12-block video tower pass and of one 6-layer text
+# tower pass (ln_per_step's)
+LN_VIDEO_PASS = 3 * 12 + 1
+LN_TEXT_PASS = 1 + 2 * 6
 
 
 def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -431,10 +454,13 @@ def interleaved_ms(a, b, iters: int = 20, warmup: int = 3) -> tuple:
 
 def device_ms(fn, iters: int = 20, warmup: int = 3,
               library: bool = False) -> float:
-    """The device time of the repository's own kernels that ``fn()``
+    """The device time of the repository's own kernel that ``fn()``
     launches (``torch.profiler``: kernels in the ``egovlp`` namespace, not
-    PyTorch's), per call, mean over ``iters`` calls; with ``library``, of
-    every kernel it launches (a PyTorch call's)."""
+    PyTorch's; one a call), per call, mean over ``iters`` calls; with
+    ``library``, of every kernel it launches (a PyTorch call's, the same
+    kernels every call).  A session that saw another count of kernels
+    (one lost events of the cooperative K3-bwd on the H100 and read it
+    faster than its bytes allow) is taken again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -443,20 +469,23 @@ def device_ms(fn, iters: int = 20, warmup: int = 3,
         fn()
     torch.cuda.synchronize()
     # a profiler session now and then returns no device events (seen once
-    # in some 20 sessions on the H100): up to three sessions
+    # in some 20 sessions on the H100), or fewer: up to three sessions
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False)
-                    and (library or "egovlp" in e.key))
-        if total > 0:
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and (library or "egovlp" in e.key)]
+        total = sum(e.self_device_time_total for e in rows)
+        count = sum(e.count for e in rows)
+        if total > 0 and (count % iters == 0 if library else count == iters):
             return total / 1e3 / iters
-    raise RuntimeError("three profiler sessions saw no kernel of "
-                       + ("the call" if library else "the repository"))
+    raise RuntimeError("three profiler sessions saw no kernel, or not every "
+                       "launch, of " + ("the call" if library
+                                        else "the repository"))
 
 
 def misaligned(t):
@@ -837,114 +866,185 @@ def ln_bound_ms(name: str, rows: int, D: int, itemsize: int = 2):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def ln_label(rows: int, cls: int, D: int) -> str:
+    return f"[{rows} + {cls}, {D}]" if cls else f"[{rows}, {D}]"
+
+
 def phase_layer_norm(smi: str) -> dict:
     """Phase 3c: K3-fwd and K3-bwd against their plain twins at
-    ``LN_SHAPES``, float32 and bf16 (relative L2 of y, dx, mu and rstd <=
-    1e-5 at float32 and, for y and dx, 2e-3 at bf16: one rounding from
-    float32 values that agree to ~1e-6; dscale and dbias, float32 sums, <=
-    1e-5 at both); two K3-bwd launches must give the same bits; then, at
-    each bf16 shape, kernel, device, plain and library times
-    (``F.layer_norm`` with the parameters in the activation dtype, and
-    ``autograd.grad`` of it minus its forward) and the bound.  Returns the
-    rows, the first shape's at the top."""
+    ``LN_CASES`` (a pair: one launch over the patch and CLS parts, against
+    ``layer_norm_pair_{fwd,bwd}_plain``), float32 and bf16 (relative L2 of
+    y, dx, mu and rstd <= 1e-5 at float32 and, for y and dx, 2e-3 at bf16:
+    one rounding from float32 values that agree to ~1e-6; dscale and dbias,
+    float32 sums, <= 1e-5 at both); two K3-bwd launches must give the same
+    bits; K3-bwd's grid at each shape; then, at each bf16 shape, kernel,
+    device, plain and library times (``F.layer_norm`` with the parameters
+    in the activation dtype, and ``autograd.grad`` of it minus its forward;
+    for a pair the two calls, one on each part, timed together) and the
+    bound, printed in us, and each pair beside its patch rows alone.
+    Returns the rows, the first case's at the top."""
+    import ctypes
+
     import torch
     import torch.nn.functional as F
 
     from egovlp_tpu_torch.kernels import fused_ln
+    from egovlp_tpu_torch.kernels._build import load_library
 
-    def inputs(rows, D, dtype, seed):
+    def inputs(rows, cls, D, dtype, seed):
+        """xs (the patch part, then the CLS part of a pair), scale, bias,
+        dys."""
         g = torch.Generator(device="cuda").manual_seed(seed)
-        x = (torch.randn(rows, D, device="cuda", generator=g) * 2 + 0.5)
-        dy = torch.randn(rows, D, device="cuda", generator=g)
+        shapes = [(rows, D)] + ([(cls, 1, D)] if cls else [])
+        xs = [(torch.randn(s, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+              for s in shapes]
+        dys = [torch.randn(s, device="cuda", generator=g).to(dtype)
+               for s in shapes]
         scale = 1 + 0.3 * torch.randn(D, device="cuda", generator=g)
         bias = torch.randn(D, device="cuda", generator=g)
-        return x.to(dtype), scale, bias, dy.to(dtype)
+        return xs, scale, bias, dys
+
+    def fwd(xs, scale, bias, plain=False):
+        """``(ys, mus, rstds)``, each in the order of ``xs``."""
+        if len(xs) == 1:
+            fn = fused_ln.layer_norm_fwd_plain if plain else \
+                fused_ln.layer_norm_fwd
+            y, mu, rstd = fn(xs[0], scale, bias, 1e-6)
+            return [y], [mu], [rstd]
+        fn = fused_ln.layer_norm_pair_fwd_plain if plain else \
+            fused_ln.layer_norm_pair_fwd
+        yc, yp, mu_c, rstd_c, mu_p, rstd_p = fn(xs[1], xs[0], scale, bias,
+                                                1e-6)
+        return [yp, yc], [mu_p, mu_c], [rstd_p, rstd_c]
+
+    def bwd(xs, scale, mus, rstds, dys, plain=False):
+        """``(dxs, dscale, dbias)``, dxs in the order of ``xs``."""
+        if len(xs) == 1:
+            fn = fused_ln.layer_norm_bwd_plain if plain else \
+                fused_ln.layer_norm_bwd
+            dx, dscale, dbias = fn(xs[0], scale, mus[0], rstds[0], dys[0])
+            return [dx], dscale, dbias
+        fn = fused_ln.layer_norm_pair_bwd_plain if plain else \
+            fused_ln.layer_norm_pair_bwd
+        dxc, dxp, dscale, dbias = fn(xs[1], xs[0], scale, mus[1], rstds[1],
+                                     mus[0], rstds[0], dys[1], dys[0])
+        return [dxp, dxc], dscale, dbias
 
     def rel(got, want):
         got, want = got.double(), want.double()
         return ((got - want).norm() / want.norm()).item()
 
-    def check_ln(x, scale, bias, dy, label):
-        y, mu, rstd = fused_ln.layer_norm_fwd(x, scale, bias, 1e-6)
-        grads = fused_ln.layer_norm_bwd(x, scale, mu, rstd, dy)
+    def check_ln(xs, scale, bias, dys, label):
+        ys, mus, rstds = fwd(xs, scale, bias)
+        dxs, dscale, dbias = bwd(xs, scale, mus, rstds, dys)
         torch.cuda.synchronize()
-        wy, wmu, wrstd = fused_ln.layer_norm_fwd_plain(x, scale, bias, 1e-6)
-        want = fused_ln.layer_norm_bwd_plain(x, scale, wmu, wrstd, dy)
-        t = 1e-5 if x.dtype == torch.float32 else 2e-3
-        outs = {"y": (y, wy, t), "mu": (mu, wmu, 1e-5),
-                "rstd": (rstd, wrstd, 1e-5), "dx": (grads[0], want[0], t),
-                "dscale": (grads[1], want[1], 1e-5),
-                "dbias": (grads[2], want[2], 1e-5)}
+        wys, wmus, wrstds = fwd(xs, scale, bias, plain=True)
+        wdxs, wdscale, wdbias = bwd(xs, scale, wmus, wrstds, dys, plain=True)
+        t = 1e-5 if xs[0].dtype == torch.float32 else 2e-3
+        parts = ("p", "c") if len(xs) == 2 else ("",)
+        outs = {}
+        for i, part in enumerate(parts):
+            outs.update({f"y{part}": (ys[i], wys[i], t),
+                         f"mu{part}": (mus[i], wmus[i], 1e-5),
+                         f"rstd{part}": (rstds[i], wrstds[i], 1e-5),
+                         f"dx{part}": (dxs[i], wdxs[i], t)})
+        outs.update({"dscale": (dscale, wdscale, 1e-5),
+                     "dbias": (dbias, wdbias, 1e-5)})
         errs = {k: (rel(g, w), (g.double() - w.double()).abs().max().item())
                 for k, (g, w, _) in outs.items()}
         ok = all(errs[k][0] <= lim and bool(torch.isfinite(g).all())
                  for k, (g, _, lim) in outs.items())
-        print(f"check layer_norm {str(x.dtype)[6:]} {label}: rel_l2/max_abs "
+        print(f"check layer_norm {str(xs[0].dtype)[6:]} {label}: rel_l2/max_abs "
               + " ".join(f"{k} {r:.1e}/{a:.2e}" for k, (r, a) in errs.items())
               + f" (tol {t:.0e}, dscale/dbias 1e-5) {'ok' if ok else 'FAIL'}",
               flush=True)
         check(ok, "K3 disagrees with its plain version")
-        return (max(errs[k][1] for k in ("y", "mu", "rstd")),
-                max(errs[k][1] for k in ("dx", "dscale", "dbias")))
+        return (max(a for k, (_, a) in errs.items() if k[:1] in "ymr"),
+                max(a for k, (_, a) in errs.items() if k[:1] == "d"))
 
-    for rows, D in LN_SHAPES:
+    lib = load_library()
+    for rows, cls, D in LN_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            check_ln(*inputs(rows, D, dtype, rows + D), f"[{rows}, {D}]")
-    out = {}
-    for rows, D in LN_SHAPES:
-        x, scale, bias, dy = inputs(rows, D, torch.bfloat16, D)
-        err_f, err_b = check_ln(x, scale, bias, dy,
-                                f"[{rows}, {D}] (timed inputs)")
-        _, mu, rstd = fused_ln.layer_norm_fwd(x, scale, bias, 1e-6)
-        again = [fused_ln.layer_norm_bwd(x, scale, mu, rstd, dy)
-                 for _ in range(2)]
+            check_ln(*inputs(rows, cls, D, dtype, rows + cls + D),
+                     ln_label(rows, cls, D))
+    out, timed = {}, {}
+    for rows, cls, D in LN_CASES:
+        label = ln_label(rows, cls, D)
+        xs, scale, bias, dys = inputs(rows, cls, D, torch.bfloat16, D)
+        err_f, err_b = check_ln(xs, scale, bias, dys, f"{label} (timed inputs)")
+        _, mus, rstds = fwd(xs, scale, bias)
+        again = [bwd(xs, scale, mus, rstds, dys) for _ in range(2)]
         torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(*again))
-        print(f"check layer_norm_bwd bf16 [{rows}, {D}]: two launches "
-              f"{'give the same bits' if same else 'DIFFER'}", flush=True)
+        same = all(torch.equal(a, b) for a, b in
+                   zip([*again[0][0], *again[0][1:]],
+                       [*again[1][0], *again[1][1:]]))
+        grid = ctypes.c_int()
+        rc = lib.egovlp_layer_norm_bwd_grid(rows + cls, D, 1, 0,
+                                            ctypes.byref(grid))
+        check(rc == 0, f"layer_norm_bwd grid at {label}: {rc}")
+        print(f"check layer_norm_bwd bf16 {label}: two launches "
+              f"{'give the same bits' if same else 'DIFFER'}; grid "
+              f"{grid.value} blocks of 8 warps ({(rows + cls) / (8 * grid.value):.1f}"
+              f" rows a warp)", flush=True)
         check(same, "layer_norm_bwd is not deterministic")
-        sc, bi = scale.to(x.dtype), bias.to(x.dtype)
-        leaves = [t.clone().requires_grad_() for t in (x, sc, bi)]
+        sc, bi = scale.to(xs[0].dtype), bias.to(xs[0].dtype)
+        leaves = [[t.clone().requires_grad_() for t in (x, sc, bi)]
+                  for x in xs]
 
         def lib_fwd():
-            return F.layer_norm(x, (D,), sc, bi, 1e-6)
+            return [F.layer_norm(x, (D,), sc, bi, 1e-6) for x in xs]
 
         def lib_grad():
-            return torch.autograd.grad(
-                F.layer_norm(leaves[0], (D,), *leaves[1:], 1e-6), leaves, dy)
+            return [torch.autograd.grad(F.layer_norm(lv[0], (D,), *lv[1:], 1e-6),
+                                        lv, dy)
+                    for lv, dy in zip(leaves, dys)]
 
         lib_f, lib_f_device = median_ms(lib_fwd), device_ms(lib_fwd,
                                                              library=True)
         lib_b = median_ms(lib_grad) - lib_f
         lib_b_device = device_ms(lib_grad, library=True) - lib_f_device
         calls = {
-            "layer_norm_fwd": (
-                lambda: fused_ln.layer_norm_fwd(x, scale, bias, 1e-6),
-                lambda: fused_ln.layer_norm_fwd_plain(x, scale, bias, 1e-6),
-                lib_f, lib_f_device, err_f),
-            "layer_norm_bwd": (
-                lambda: fused_ln.layer_norm_bwd(x, scale, mu, rstd, dy),
-                lambda: fused_ln.layer_norm_bwd_plain(x, scale, mu, rstd, dy),
-                lib_b, lib_b_device, err_b)}
+            "layer_norm_fwd": (lambda: fwd(xs, scale, bias),
+                               lambda: fwd(xs, scale, bias, plain=True),
+                               lib_f, lib_f_device, err_f),
+            "layer_norm_bwd": (lambda: bwd(xs, scale, mus, rstds, dys),
+                               lambda: bwd(xs, scale, mus, rstds, dys,
+                                           plain=True),
+                               lib_b, lib_b_device, err_b)}
         for name, (kernel, plain, t_lib, t_lib_device, err) in calls.items():
             t_plain = median_ms(plain)
             t_kernel = median_ms(kernel)
             t_device = device_ms(kernel)
-            bound, bound_by = ln_bound_ms(name, rows, D)
-            print(f"time {name} bf16 [{rows}, {D}]: kernel {t_kernel:.4f} ms "
-                  f"(device {t_device:.4f} ms), plain {t_plain:.4f} ms, "
-                  f"library {t_lib:.4f} ms (device {t_lib_device:.4f} ms), "
-                  f"bound {bound:.4f} ms ({bound_by}) [{smi}]", flush=True)
+            bound, bound_by = ln_bound_ms(name, rows + cls, D)
+            what = "pair" if cls else "single"
+            print(f"time {name} bf16 {label} ({what}): kernel {t_kernel:.4f} "
+                  f"ms (device {t_device * 1e3:.2f} us), plain {t_plain:.4f} ms, "
+                  f"library {t_lib:.4f} ms (device {t_lib_device * 1e3:.2f} "
+                  f"us{', two F.layer_norm calls' if cls else ''}), bound "
+                  f"{bound * 1e3:.3f} us ({bound_by}; the device time "
+                  f"reaches {bound / t_device:.1%} of it) [{smi}]", flush=True)
             row = {"ms": t_kernel, "device_ms": t_device, "plain_ms": t_plain,
                    "library_ms": t_lib, "library_device_ms": t_lib_device,
                    "bound_ms": bound, "bound_by": bound_by,
                    "max_abs_err": err, "dtype": "bfloat16",
-                   "shape": [rows, D]}
+                   "shape": [rows + cls, D], "cls_rows": cls,
+                   "bwd_grid": grid.value}
+            timed[name, rows, cls, D] = row
             if name in out:
                 out[name].setdefault("other_shapes", []).append(row)
             else:
                 out[name] = row
-        del x, scale, bias, dy, mu, rstd, again, leaves
+        del xs, scale, bias, dys, mus, rstds, again, leaves
+    # each pair beside its patch rows launched alone
+    for (name, rows, cls, D), row in timed.items():
+        alone = timed.get((name, rows, 0, D))
+        if cls and alone is not None:
+            extra = row["device_ms"] - alone["device_ms"]
+            print(f"pair {name} bf16 {ln_label(rows, cls, D)}: device "
+                  f"{row['device_ms'] * 1e3:.2f} us against the patch rows "
+                  f"alone {alone['device_ms'] * 1e3:.2f} us ({extra * 1e3:+.2f}"
+                  f" us); event {row['ms']:.4f} against {alone['ms']:.4f} ms "
+                  f"[{smi}]", flush=True)
     return out
 
 
@@ -1014,8 +1114,11 @@ def phase_slice(ca, smi: str) -> tuple:
         want = 12 * passes if name in FWD else 0
         check(counts[name] == want,
               f"{name}: {counts[name]} launches, expected {want}")
-    check(counts["layer_norm_fwd"] > 0 and counts["layer_norm_bwd"] == 0,
-          "serving: K3-fwd never launched, or K3-bwd launched")
+    # one text request (one pass) and a pass a video call
+    want_ln = LN_TEXT_PASS + LN_VIDEO_PASS * passes
+    check(counts["layer_norm_fwd"] == want_ln and counts["layer_norm_bwd"] == 0,
+          f"serving: K3 launches {counts}, expected {want_ln} forward and no "
+          f"backward")
     check(text_emb.shape == (len(TEXTS), 256)
           and np.isfinite(text_emb).all(), f"text {text_emb.shape}")
     for n, out in outs.items():
@@ -1269,12 +1372,15 @@ def phase_train(ca, smi: str) -> tuple:
           flush=True)
     check(same[-1] < same[0], "the loss on a repeated batch did not fall")
 
-    profile_steps(fresh, fresh_opt, step, batches, smi)
+    profile_steps(fresh, fresh_opt, step, batches, smi,
+                  k3=ln_per_step(cfg.video.depth, cfg.text.n_layers))
     return counts, ref
 
 
-def profile_steps(model, opt, step, batches, smi: str) -> None:
-    """``profile_calls`` over training steps, after a warm one."""
+def profile_steps(model, opt, step, batches, smi: str,
+                  k3: "dict | None" = None) -> None:
+    """``profile_calls`` over training steps, after a warm one (``k3``:
+    K3's launches a step, checked there)."""
     import torch
 
     from egovlp_tpu_torch.train.recipes import step_generator, to_device
@@ -1286,12 +1392,32 @@ def profile_steps(model, opt, step, batches, smi: str) -> None:
         step(model, opt, batches[i % len(batches)],
              step_generator(DEVICE, 1, 2, i))
 
-    profile_calls("train step", one, smi)
+    profile_calls("train step", one, smi, k3=k3)
 
 
-def profile_calls(label: str, fn, smi: str, n: int = 3) -> None:
+def k3_backward_nodes(prof) -> list:
+    """The K3 backward autograd nodes (``LayerNormBackward``,
+    ``LayerNormPairBackward``) of a profile, each as the names of every
+    op and runtime call inside it."""
+    nodes = []
+    for e in prof.events():
+        if e.name.startswith("autograd::engine::evaluate_function: LayerNorm"):
+            names, stack = [], list(e.cpu_children)
+            while stack:
+                c = stack.pop()
+                names.append(c.name)
+                stack.extend(c.cpu_children)
+            nodes.append(names)
+    return nodes
+
+
+def profile_calls(label: str, fn, smi: str, n: int = 3,
+                  k3: "dict | None" = None) -> None:
     """Device busy time by kernel, idle share and launches a call over ``n``
-    calls ``fn(i)`` (``torch.profiler``)."""
+    calls ``fn(i)`` (``torch.profiler``).  With ``k3`` (K3's launches a
+    call, ``ln_per_step``): the profile's K3-fwd and K3-bwd kernels a call
+    must be those, and no K3 backward node may run a PyTorch reduction
+    (the parameter grads are summed on the device by K3-bwd itself)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1319,12 +1445,32 @@ def profile_calls(label: str, fn, smi: str, n: int = 3) -> None:
         print(f"profile {label} kernel "
               f"{e.self_device_time_total / 1e3 / n:9.3f} ms/call "
               f"{e.count / n:6.0f}x  {e.key[:90]}", flush=True)
-    k3 = [e for e in rows if "k3::" in e.key]
-    k3_ms = sum(e.self_device_time_total for e in k3) / 1e3 / n
+    k3_rows = [e for e in rows if "k3::" in e.key]
+    k3_ms = sum(e.self_device_time_total for e in k3_rows) / 1e3 / n
+    k3_fwd, k3_bwd = (sum(e.count for e in k3_rows if f"k3::{d}_kernel" in e.key)
+                      / n for d in ("fwd", "bwd"))
     print(f"profile {label}: K3 (LayerNorm kernels) {k3_ms:.3f} ms/call, "
-          f"{sum(e.count for e in k3) / n:.0f} launches/call, "
+          f"{k3_fwd:.0f} K3-fwd + {k3_bwd:.0f} K3-bwd launches/call, "
           f"{k3_ms / busy if busy else 0.0:.1%} of the device busy time "
           f"[{smi}]", flush=True)
+    if k3 is not None:
+        check(k3_fwd == k3["layer_norm_fwd"] and k3_bwd == k3["layer_norm_bwd"],
+              f"profile {label}: K3 kernels {k3_fwd} / {k3_bwd} a call, "
+              f"expected {k3}")
+        nodes = k3_backward_nodes(prof)
+        inside = [name for names in nodes for name in names]
+        reductions = [x for x in inside
+                      if x.startswith(("aten::sum", "aten::mean"))]
+        coop = sum(x.startswith("cudaLaunchCooperativeKernel") for x in inside)
+        other = sum(x.startswith("cudaLaunchKernel") for x in inside)
+        print(f"profile {label}: {len(nodes) / n:.0f} K3 backward nodes/call;"
+              f" inside them {coop / n:.0f} cooperative launches (K3-bwd), "
+              f"{other / n:.0f} other kernel launches (gradient "
+              f"accumulation), {len(reductions) / n:.0f} reductions "
+              f"{sorted(set(reductions))}", flush=True)
+        check(nodes and not reductions,
+              f"profile {label}: no K3 backward node found, or one runs a "
+              f"PyTorch reduction: {sorted(set(reductions))}")
 
 
 def phase_head_split(ca, smi: str) -> dict:
@@ -2333,7 +2479,7 @@ def phase_finetune(ca, smi: str, root: Path) -> dict:
           f"{[round(v, 5) for v in same]}", flush=True)
     check(all(np.isfinite(same)) and same[-1] < same[0],
           "the max-margin loss on a repeated batch did not fall")
-    profile_steps(model, opt, step, batches, smi)
+    profile_steps(model, opt, step, batches, smi, k3=ln_per_step(12, 6))
     del model, opt, fixed, batches
     torch.cuda.empty_cache()
 
@@ -2386,6 +2532,11 @@ def phase_finetune(ca, smi: str, root: Path) -> dict:
                 12 * passes if name in FWD else 0)
             check(c == want, f"{name}: {c} launches in the EPIC cli.train, "
                              f"expected {want}")
+        for name, c in ln_per_step(12, 6).items():  # and the validations'
+            check(counts[name] >= c * n_steps if name == "layer_norm_fwd"
+                  else counts[name] == c * n_steps,
+                  f"{name}: {counts[name]} launches in the EPIC cli.train, "
+                  f"expected {c * n_steps} (forward: at least)")
         values = [float(v) for v in losses]
         print(f"finetune cli.train epic losses: "
               f"{[round(v, 5) for v in values]}", flush=True)
@@ -2694,8 +2845,9 @@ def sc_first_steps(task: str, cfg_path: str, ov: list, smi: str) -> None:
     check(same[-1] < same[0],
           f"the {task} loss on a repeated batch did not fall")
     check(not moved, f"{task} steps moved the text tower: {moved[:3]}")
-    if task == "oscc":
-        profile_steps(model, opt, step, batches, smi)
+    if task == "oscc":  # video only: one tower pass, its backward
+        profile_steps(model, opt, step, batches, smi,
+                      k3=dict.fromkeys(LN_KERNELS, LN_VIDEO_PASS))
     del model, opt, fixed, batches, initial
     torch.cuda.empty_cache()
 
@@ -2775,9 +2927,9 @@ def phase_oscc_pnr(ca, smi: str, root: Path) -> dict:
                     12 * passes if name in FWD else 0)
                 check(c == want, f"{name}: {c} launches in the {task} "
                                  f"cli.train, expected {want}")
-            # video only: 73 norms a tower pass, 72 in its backward
-            check(counts["layer_norm_fwd"] >= 73 * n_steps
-                  and counts["layer_norm_bwd"] == 72 * n_steps,
+            # video only: 37 K3 launches a tower pass, as many backward
+            check(counts["layer_norm_fwd"] >= LN_VIDEO_PASS * n_steps
+                  and counts["layer_norm_bwd"] == LN_VIDEO_PASS * n_steps,
                   f"{task}: K3 launches {counts}")
             for name, c in counts.items():
                 total[name] += c
@@ -2909,7 +3061,7 @@ def phase_extract(ca, smi: str, root: Path) -> dict:
         want = 12 * micro if name in FWD else 0
         check(c == want, f"{name}: {c} launches in cli.extract, expected "
                          f"{want}")
-    check(counts["layer_norm_fwd"] == 73 * micro
+    check(counts["layer_norm_fwd"] == LN_VIDEO_PASS * micro
           and counts["layer_norm_bwd"] == 0, f"cli.extract K3 {counts}")
     print(f"extract cli.extract nlq video: {n_win} windows of 4 frames in "
           f"{wall:.3f} s ({n_win / wall:.1f} windows/s with decode and "
@@ -3150,7 +3302,8 @@ def phase_vitl(ca, smi: str, root: Path) -> dict:
                   f"{c} launches in 3 steps, expected {3 * want.get(name, 0)}")
         if mode == "block":  # the config's own mode
             profile_calls("vitl train step (remat 'block')",
-                          lambda i: step(model, opt, batch, gen(10 + i)), smi)
+                          lambda i: step(model, opt, batch, gen(10 + i)), smi,
+                          k3=ln_per_step(24, 6, "block"))
         del model, opt
         torch.cuda.empty_cache()
 
@@ -3587,7 +3740,9 @@ def main() -> None:
             check(rc == 0, f"{name} attributes: {rc}")
             print(f"kernel {name} {dtype}: {regs.value} registers a thread, "
                   f"{local.value} local (spill) bytes a thread, {smem.value} "
-                  f"bytes of shared memory a CTA", flush=True)
+                  f"bytes of shared memory a CTA"
+                  f"{' (its row ring at D 1024)' if name.endswith('bwd') else ''}",
+                  flush=True)
             check(dtype != "bfloat16" or local.value == 0,
                   f"{name} bf16 spills to local memory")
     print(f"kernel K1/K2 at ViT-L's width (D {VITL_DIM}, {VITL_HEADS} heads "

@@ -39,10 +39,13 @@ _HS_FWD = ([_P] * 6 + [_I] * 4 + [_I, _I, _P], _I)
 _HS_BWD = ([_P] * 11 + [_I] * 4 + [_I, _I, _P], _I)
 _K5_FWD = ([_P] * 6 + [_I] * 5 + [_I, _I, _P], _I)
 _K5_BWD = ([_P] * 11 + [_I] * 5 + [_I, _I, _P], _I)
-# LayerNorm (K3): x, scale, bias, y, mu, rstd; rows, D, eps / x, dy, scale,
-# mu, rstd, dx, part; rows, D
-_LN_FWD = ([_P] * 6 + [_I, _I, ctypes.c_float, _I, _I, _P], _I)
-_LN_BWD = ([_P] * 7 + [_I] * 4 + [_P], _I)
+# LayerNorm (K3) over two row segments a and b: xa, xb, scale, bias, ya, yb,
+# stats_a, stats_b; rows_a, rows_b, D, eps / xa, xb, dya, dyb, scale, mua,
+# rstda, mub, rstdb, dxa, dxb, part, dparams; rows_a, rows_b, D, part_rows;
+# and the backward's grid at (rows, D, dtype, device)
+_LN_FWD = ([_P] * 8 + [_I, _I, _I, ctypes.c_float, _I, _I, _P], _I)
+_LN_BWD = ([_P] * 13 + [_I] * 4 + [_I, _I, _P], _I)
+_LN_BWD_GRID = ([_I] * 4 + [ctypes.POINTER(_I)], _I)
 # (L, hd) -> registers, local bytes and shared memory of a bf16
 # tensor-core kernel; (F, dtype) -> the same of a K2 or K5 streaming
 # instantiation
@@ -68,6 +71,7 @@ _SIGNATURES = {
     "egovlp_grouped_attention_bwd_attributes": _ATTRIBUTES,
     "egovlp_layer_norm_fwd": _LN_FWD,
     "egovlp_layer_norm_bwd": _LN_BWD,
+    "egovlp_layer_norm_bwd_grid": _LN_BWD_GRID,
     "egovlp_layer_norm_fwd_attributes": _LN_ATTRIBUTES,
     "egovlp_layer_norm_bwd_attributes": _LN_ATTRIBUTES,
     "egovlp_cuda_error_string": ([_I], ctypes.c_char_p),

@@ -37,6 +37,7 @@ struct DeviceLimits {
   int smem_per_sm;     // shared memory of one SM
   int smem_reserved;   // shared memory the runtime reserves per block
   int threads_per_sm;  // resident threads of one SM
+  int sms;             // streaming multiprocessors
 };
 
 constexpr int kMaxDevices = 64;
@@ -51,7 +52,9 @@ inline cudaError_t read_device_limits(int device, DeviceLimits* lim) {
       (err = cudaDeviceGetAttribute(&lim->smem_reserved, cudaDevAttrReservedSharedMemoryPerBlock,
                                     device)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&lim->threads_per_sm, cudaDevAttrMaxThreadsPerMultiProcessor,
-                                    device)) != cudaSuccess)
+                                    device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&lim->sms, cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess)
     return err;
   return cudaSuccess;
 }

@@ -1,7 +1,14 @@
 // Shared pieces of the LayerNorm kernels K3-fwd and K3-bwd
 // (layer_norm_fwd.cu, layer_norm_bwd.cu): 16-byte row slices of the two
 // activation types widened to float32 and narrowed back, float32 parameter
-// slices, and the launch limits.
+// slices, the two row segments of a launch, and the persistent grid.
+//
+// A launch takes two row segments of one width D that share the
+// parameters: segment a ([rows_a, D]) and segment b ([rows_b, D]), row r of
+// the launch being row r of a for r < rows_a and row r - rows_a of b
+// after it.  The video tower's CLS + patch pair is one launch, the patch
+// rows as a and the CLS rows as b (the tail of the grid); a single tensor
+// is segment a with rows_b 0.
 //
 // A row of D values is cut into D / kN slices of 16 bytes (kN = 8 at bf16,
 // 4 at float32); lane l of the warp that owns the row takes slices l,
@@ -13,6 +20,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <atomic>
 #include <cstdint>
 
 #include "common.cuh"
@@ -20,13 +29,9 @@
 namespace egovlp {
 namespace k3 {
 
-constexpr int kWarps = 8;          // warps a block
+constexpr int kWarps = 8;  // warps a block, one row a warp at a time
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxD = 1024;        // the widest row the backward holds
-constexpr int kBwdRowsPerBlock = 32;  // rows a backward block sums
-
-// blocks of a backward launch over `rows` rows: the rows of its partial sums
-inline int bwd_blocks(int rows) { return (rows + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock; }
+constexpr int kMaxD = 1024;  // the widest row the backward holds
 
 template <typename T>
 struct Slice {
@@ -88,6 +93,14 @@ __device__ __forceinline__ void load_params(const float* p, float (&f)[kN]) {
   }
 }
 
+// row r of the launch in a tensor of `width` values a row, laid out as the
+// two segments a (rows_a rows) and b
+template <typename P>
+__device__ __forceinline__ P row_of(P a, P b, int r, int rows_a, int width) {
+  return r < rows_a ? a + static_cast<size_t>(r) * width
+                    : b + static_cast<size_t>(r - rows_a) * width;
+}
+
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 inline cudaError_t use_device(int device) {
@@ -95,6 +108,29 @@ inline cudaError_t use_device(int device) {
   cudaError_t err = cudaGetDevice(&cur);
   if (err != cudaSuccess || cur == device) return err;
   return cudaSetDevice(device);
+}
+
+// The grid of a persistent launch of `kernel` (kThreads threads, `smem`
+// bytes of dynamic shared memory a block) over `rows` rows: one warp a row,
+// so ceil(rows / kWarps) blocks, but no more than min(cap, what one SM
+// holds) blocks on each SM; the blocks then walk their rows.  What one SM
+// holds is read from the runtime once per device and kept in `per_sm` (0:
+// not read yet; the caller keys the slot by anything that changes `smem`).
+template <typename K>
+cudaError_t persistent_grid(K kernel, int rows, size_t smem, int cap, int device,
+                            std::atomic<int>* per_sm, int* grid) {
+  DeviceLimits lim;
+  cudaError_t err = device_limits(device, &lim);
+  if (err != cudaSuccess) return err;
+  int n = per_sm->load(std::memory_order_relaxed);
+  if (n == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (n == 0) return cudaErrorInvalidConfiguration;
+    per_sm->store(n, std::memory_order_relaxed);
+  }
+  *grid = std::min((rows + kWarps - 1) / kWarps, std::min(n, cap) * lim.sms);
+  return cudaSuccess;
 }
 
 }  // namespace k3

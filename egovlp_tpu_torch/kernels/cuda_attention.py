@@ -555,7 +555,10 @@ _TIME_HS_BWD = _define("time_attention_hs_bwd", time_attention_hs_bwd_plain,
 # --------------------------------------------------------------------------
 # autograd: forward kernel, backward kernel, inputs saved (no probabilities);
 # both launched by ``direct``.  A forward without autograd (serving,
-# evaluation, ``torch.export``) calls the op instead: ``forward_only``
+# evaluation, ``torch.export``) calls the op instead: ``forward_only``.  An
+# output whose gradient is undefined (it reaches no loss, as the last video
+# block's patch outputs, whose LayerNorm pair returns no patch gradient)
+# launches no backward: the grads are not materialised as zeros
 # --------------------------------------------------------------------------
 
 def forward_only() -> bool:
@@ -572,11 +575,14 @@ class SpaceAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, cls_k, cls_v, heads, scale):
         ctx.save_for_backward(q, k, v, cls_k, cls_v)
         ctx.heads, ctx.scale = heads, scale
+        ctx.set_materialize_grads(False)
         return direct("space_attention_fwd", q, k, v, cls_k, cls_v, heads,
                       scale)
 
     @staticmethod
     def backward(ctx, do):
+        if do is None:  # the output reaches no loss: no launch
+            return (None,) * 7
         return (*direct("space_attention_bwd", *ctx.saved_tensors,
                         do.contiguous(), ctx.heads, ctx.scale), None, None)
 
@@ -588,11 +594,14 @@ class TimeAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, cls_k, cls_v, heads, scale):
         ctx.save_for_backward(q, k, v, cls_k, cls_v)
         ctx.heads, ctx.scale = heads, scale
+        ctx.set_materialize_grads(False)
         return direct("time_attention_fwd", q, k, v, cls_k, cls_v, heads,
                       scale)
 
     @staticmethod
     def backward(ctx, do):
+        if do is None:  # the output reaches no loss: no launch
+            return (None,) * 7
         return (*direct("time_attention_bwd", *ctx.saved_tensors,
                         do.contiguous(), ctx.heads, ctx.scale), None, None)
 
@@ -604,10 +613,13 @@ class GroupedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, cls_k, cls_v):
         ctx.save_for_backward(q, k, v, cls_k, cls_v)
+        ctx.set_materialize_grads(False)
         return direct("grouped_attention_fwd", q, k, v, cls_k, cls_v)
 
     @staticmethod
     def backward(ctx, do):
+        if do is None:
+            return (None,) * 5
         return direct("grouped_attention_bwd", *ctx.saved_tensors,
                       do.contiguous())
 
@@ -619,9 +631,12 @@ class TimeAttentionHS(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, cls_k, cls_v):
         ctx.save_for_backward(q, k, v, cls_k, cls_v)
+        ctx.set_materialize_grads(False)
         return direct("time_attention_hs_fwd", q, k, v, cls_k, cls_v)
 
     @staticmethod
     def backward(ctx, do):
+        if do is None:
+            return (None,) * 5
         return direct("time_attention_hs_bwd", *ctx.saved_tensors,
                       do.contiguous())

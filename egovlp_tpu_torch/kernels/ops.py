@@ -1,8 +1,9 @@
 """The hand-written kernels as operators the PyTorch dispatcher knows.
 
 Every kernel wrapper of ``cuda_attention.py`` (K1, K2, K4, K5, forward
-and backward) and ``fused_ln.py`` (K3, forward and backward) is defined
-as an op ``torch.ops.egovlp_torch.<name>`` with three implementations:
+and backward) and ``fused_ln.py`` (K3, forward and backward, on one
+tensor and on a CLS + patch pair) is defined as an op
+``torch.ops.egovlp_torch.<name>`` with three implementations:
 
 * ``CUDA``: the wrapper's launcher, which launches the kernel on the
   inputs' device (counted in ``cuda_attention.launches``) or raises;

@@ -13,7 +13,9 @@ published EgoVLP checkpoint alike.  Kept from the JAX tower:
 * ``time_init='zeros'``: zero time-attention qkv, all-ones output
   projection (applied by ``build.init_params``);
 * the temporal embed is sliced to the input's ``T <= num_frames``;
-* exact-erf GELU, LayerNorm eps 1e-6 with f32 statistics;
+* exact-erf GELU, LayerNorm eps 1e-6 with f32 statistics; each of a
+  block's three norms takes the CLS and patch parts in one launch each
+  way (``FusedLayerNorm.pair``), with JAX's two calls' gradients summed;
 * training mode: drop-path at rates ``linspace(0, drop_path_rate, depth)``
   on the space-attention and MLP branches, one keep mask per sample for
   both parts of the pair, drawn from an explicit ``torch.Generator``
@@ -287,14 +289,15 @@ class SpaceTimeBlock(nn.Module):
         return self.mlp(x)
 
     def _body(self, xc, xp, space_mask=None, mlp_mask=None):
-        tc, tp = self._attention(self.timeattn, self.norm3(xc), self.norm3(xp))
-        sc, sp = self._attention(self.attn, self.norm1(xc + tc),
-                                 self.norm1(xp + tp))
+        # each norm takes the CLS and patch parts in one launch (``pair``)
+        tc, tp = self._attention(self.timeattn, *self.norm3.pair(xc, xp))
+        sc, sp = self._attention(self.attn, *self.norm1.pair(xc + tc, xp + tp))
         if space_mask is not None:
             sc, sp = drop_path(sc, sp, space_mask)
         # residual from the ORIGINAL x, not from x + time (reference quirk)
         rc, rp = xc + sc, xp + sp
-        mc, mp = self._mlp(self.norm2(rc)), self._mlp(self.norm2(rp))
+        nc, np_ = self.norm2.pair(rc, rp)
+        mc, mp = self._mlp(nc), self._mlp(np_)
         if mlp_mask is not None:
             mc, mp = drop_path(mc, mp, mlp_mask)
         return rc + mc, rp + mp

@@ -620,3 +620,99 @@ def test_cuda_layer_norm_refuses_shapes(cuda_device, dtype, D, bwd):
             fused_ln.layer_norm_bwd(x, scale, stats[0], stats[1], dy)
         else:
             fused_ln.layer_norm_fwd(x, scale, bias, 1e-6)
+
+
+# the CLS + patch pair: one K3-fwd and one K3-bwd launch over both parts,
+# at the shapes of phase 3c and ragged small ones; (patch rows, CLS rows)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-3)])
+@pytest.mark.parametrize("rows,cls,D", [(25088, 32, 1024), (25088, 32, 768),
+                                        (196, 4, 768), (5, 3, 64),
+                                        (0, 32, 1024)])
+def test_cuda_layer_norm_pair_matches_plain(cuda_device, dtype, rel, rows,
+                                            cls, D):
+    """Each part as the single twin, and dscale / dbias the two parts'
+    sums added (1e-5: float32 sums in another order)."""
+    from egovlp_tpu_torch.kernels import fused_ln
+
+    xp, scale, bias, dyp = _ln_inputs(cuda_device, dtype, rows, D, seed=rows)
+    xc, _, _, dyc = _ln_inputs(cuda_device, dtype, cls, D, seed=cls + 1)
+    xc, dyc = xc.reshape(cls, 1, D), dyc.reshape(cls, 1, D)
+    ca.reset_launch_counts()
+    yc, yp, mu_c, rstd_c, mu_p, rstd_p = fused_ln.layer_norm_pair_fwd(
+        xc, xp, scale, bias, 1e-6)
+    grads = fused_ln.layer_norm_pair_bwd(xc, xp, scale, mu_c, rstd_c, mu_p,
+                                         rstd_p, dyc, dyp)
+    torch.cuda.synchronize()
+    assert ca.launches["layer_norm_fwd"] == ca.launches["layer_norm_bwd"] == 1
+    want = fused_ln.layer_norm_pair_fwd_plain(xc, xp, scale, bias, 1e-6)
+    want_grads = fused_ln.layer_norm_pair_bwd_plain(xc, xp, scale, *want[2:],
+                                                    dyc, dyp)
+    for got, w, lim in zip((yc, yp, mu_c, rstd_c, mu_p, rstd_p, *grads),
+                           (*want, *want_grads),
+                           (rel, rel, 1e-5, 1e-5, 1e-5, 1e-5, rel, rel, 1e-5,
+                            1e-5)):
+        assert got.shape == w.shape and got.dtype == w.dtype
+        if w.numel():
+            assert _rel(got, w) <= lim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dead", ["patch", "cls", None])
+def test_cuda_layer_norm_pair_function_launches_once(cuda_device, dead):
+    """The Function launches K3-fwd once and K3-bwd once; an output with
+    no gradient leaves its rows out (its input grad None) and the grads
+    equal autograd of the plain twin with a zero cotangent there."""
+    from egovlp_tpu_torch.kernels import fused_ln
+
+    xp, scale, bias, dyp = _ln_inputs(cuda_device, torch.float32, 300, 768)
+    xc, _, _, dyc = _ln_inputs(cuda_device, torch.float32, 4, 768, seed=1)
+    leaves = [t.clone().requires_grad_() for t in (xc, xp, scale, bias)]
+    ca.reset_launch_counts()
+    yc, yp = fused_ln.fused_layer_norm_pair(*leaves)
+    outs = [(y, d) for y, d, part in ((yc, dyc, "cls"), (yp, dyp, "patch"))
+            if part != dead]
+    got = torch.autograd.grad([o for o, _ in outs], leaves,
+                              [d for _, d in outs], allow_unused=True)
+    torch.cuda.synchronize()
+    assert ca.launches["layer_norm_fwd"] == ca.launches["layer_norm_bwd"] == 1
+    plain = [t.clone().requires_grad_() for t in (xc, xp, scale, bias)]
+    pc = fused_ln.layer_norm_fwd_plain(plain[0], *plain[2:], 1e-6)[0]
+    pp = fused_ln.layer_norm_fwd_plain(plain[1], *plain[2:], 1e-6)[0]
+    zc = torch.zeros_like(dyc) if dead == "cls" else dyc
+    zp = torch.zeros_like(dyp) if dead == "patch" else dyp
+    want = torch.autograd.grad([pc, pp], plain, [zc, zp])
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (dead, i) in (("cls", 0), ("patch", 1)):
+            assert g is None
+        else:
+            assert _rel(g, w) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_bwd_grid_fills_the_card(cuda_device):
+    """K3-bwd's grid: one block of 8 warps (one row each) for every 8 rows,
+    up to one an SM."""
+    import ctypes
+
+    from egovlp_tpu_torch.kernels._build import load_library
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    lib = load_library()
+    for rows, D, want in ((32, 1024, 4), (960, 768, 120),
+                          (25120, 1024, sms), (25120, 768, sms)):
+        grid = ctypes.c_int()
+        assert lib.egovlp_layer_norm_bwd_grid(rows, D, 1, cuda_device.index or 0,
+                                              ctypes.byref(grid)) == 0
+        assert grid.value == min(want, -(-rows // 8)), (rows, D)
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_pair_refuses_mismatched_parts(cuda_device):
+    from egovlp_tpu_torch.kernels import fused_ln
+
+    xp, scale, bias, _ = _ln_inputs(cuda_device, torch.bfloat16, 8, 64)
+    xc, _, _, _ = _ln_inputs(cuda_device, torch.float32, 2, 64)
+    with pytest.raises(ValueError, match="segments"):
+        fused_ln.layer_norm_pair_fwd(xc, xp, scale, bias, 1e-6)

@@ -1,11 +1,13 @@
 """The kernels as registered ops, and the AOT serving artifact (CPU).
 
-* every one of the ten ops (K1, K2, K4, K5 and K3, forward and backward)
-  passes ``torch.library.opcheck`` on CPU tensors, and its CPU
-  implementation equals its plain twin bit for bit;
+* every one of the twelve ops (K1, K2, K4, K5 and K3, forward and
+  backward, and K3's CLS + patch pair each way) passes
+  ``torch.library.opcheck`` on CPU tensors, and its CPU implementation
+  equals its plain twin bit for bit;
 * ``torch.export`` of a two-block video tower holds one
   ``egovlp_torch.space_attention_fwd`` and one ``time_attention_fwd``
-  node a block;
+  node a block, three ``layer_norm_pair_fwd`` nodes a block and one
+  ``layer_norm_fwd`` (the final norm);
 * the artifact of a tiny dual encoder (D 64, two blocks, DistilBERT's
   vocabulary of 30,522 so that the weights are real bytes) at buckets
   (1, 2, 4): ``ExportedEmbedder`` equals the live ``Embedder`` at atol
@@ -109,6 +111,16 @@ def op_cases():
                                lambda a: fused_ln.layer_norm_fwd_plain(*a))
     cases["layer_norm_bwd"] = ((x, scale, mu, rstd, dy),
                                lambda a: fused_ln.layer_norm_bwd_plain(*a))
+    # the CLS + patch pair: [2, 1, 16] and [2, 3, 16]
+    xc, xp = x[:2].reshape(2, 1, 16), x[2:5].reshape(3, 16)
+    _, _, mu_c, rstd_c, mu_p, rstd_p = fused_ln.layer_norm_pair_fwd_plain(
+        xc, xp, scale, bias, 1e-6)
+    cases["layer_norm_pair_fwd"] = (
+        (xc, xp, scale, bias, 1e-6),
+        lambda a: fused_ln.layer_norm_pair_fwd_plain(*a))
+    cases["layer_norm_pair_bwd"] = (
+        (xc, xp, scale, mu_c, rstd_c, mu_p, rstd_p, dy[:2].reshape(2, 1, 16),
+         dy[2:5]), lambda a: fused_ln.layer_norm_pair_bwd_plain(*a))
     return cases
 
 
@@ -116,10 +128,12 @@ OP_CASES = op_cases()
 
 
 def test_ten_ops():
+    # ten kernel ops, and K3's pair (CLS + patch in one launch) each way
     assert sorted(OP_CASES) == sorted(
         f"{k}_{d}" for k in ("space_attention", "time_attention",
                              "grouped_attention", "time_attention_hs",
-                             "layer_norm") for d in ("fwd", "bwd"))
+                             "layer_norm", "layer_norm_pair")
+        for d in ("fwd", "bwd"))
 
 
 @pytest.mark.parametrize("name", sorted(OP_CASES))
@@ -137,8 +151,12 @@ def test_cpu_op_is_the_plain_twin(name):
         got, want = (got,), (want,)
     elif name == "layer_norm_fwd":
         got = (got[0], *got[1].unbind(0))
+    elif name == "layer_norm_pair_fwd":
+        got = (*got[:2], *got[2].unbind(0), *got[3].unbind(0))
     else:  # the stacked outputs, as the wrappers unbind them
         got = (got[0], *got[1].unbind(0)) if name == "layer_norm_bwd" \
+            else (*got[:2], *got[2].unbind(0)) \
+            if name == "layer_norm_pair_bwd" \
             else (*got[0].unbind(0), *got[1].unbind(0))
     assert len(got) == len(want)
     for g, w in zip(got, want):
@@ -168,8 +186,10 @@ def test_exported_tower_holds_one_node_a_kernel_call():
     assert depth == 2
     assert targets.count("egovlp_torch.space_attention_fwd.default") == depth
     assert targets.count("egovlp_torch.time_attention_fwd.default") == depth
-    assert targets.count("egovlp_torch.layer_norm_fwd.default") == \
-        6 * depth + 1
+    # a block's three norms each one pair node; the final norm one node
+    assert targets.count("egovlp_torch.layer_norm_pair_fwd.default") == \
+        3 * depth
+    assert targets.count("egovlp_torch.layer_norm_fwd.default") == 1
     assert not [t for t in targets if "bwd" in t]
 
 
