@@ -282,6 +282,60 @@ Phases, each of which passes or raises (any failure exits non-zero):
    K1-fwd at ``[16, 4, 196, 768]`` through the registered op, the launcher
    and a ``torch.library.custom_op``).
 
+13. mesh parallelism (A13), ViT-L (``configs/pt/egoclip_vitl_tp.json``)
+   at full width, bf16, seeded random weights with random time attention:
+   (a) at the end of phases 3 and 3c, K1 and K2 (forward and backward) at
+   the local shapes of (b)'s ranks (``MESH_SHAPES``: tensor parallelism
+   ``[64, 4, 196, 512]`` with 8 heads; sequence parallelism's space phase
+   ``[64, 2, 196, 1024]`` and time phase ``[64, 4, 98, 1024]``) and K3 on
+   their CLS + patch pairs ``[25088 + 64, 1024]`` and ``[50176 + 64,
+   1024]``, held to their twins within phase 3's limits and timed with
+   SDPA (``F.layer_norm``) and the bound.  (b) two ranks over gloo on
+   GPU 0 (``chip_smoke.py --mesh-worker``, each with its own time limit
+   and exit code) run each of ``MESH_RUNS`` for 3 steps ('block'
+   recompute, AdamW) from one process's seeded weights on the global
+   batches it trained on: model 2 with sequence parallelism (the config
+   as shipped: data 1, 16 + 16 clips a chip, so 32 + 32 rows), the same
+   without it (tensor parallelism of both towers), data 2 with ZeRO 1 and
+   with ZeRO 3 (these three at 4 + 4 clips a chip: gloo moves their
+   tensors through the host, and the smoke must end within 1200 s).  Against the one-process run: the first
+   step's loss within 5e-3, the ranks' losses identical, the launches of
+   every kernel a step those of one process (``vitl_step_counts('block')``;
+   the sequence-parallel last block's dead patch path passes ``None``
+   through its all-to-all), 143 all-to-alls a step under sequence
+   parallelism, and phase 8's limits: the first step's gradient (reduced
+   over the mesh, gathered whole) at cosine >= 0.999 over all parameters
+   and >= 0.99 for every block's ``attn.qkv.weight`` /
+   ``timeattn.qkv.weight``, the update after 3 steps at cosine >= 0.99.
+   A model axis splits each layer's GEMM, and a bf16 GEMM split in two
+   rounds otherwise: the split control, one process whose tensor-parallel
+   layers run in two halves (``split_layers``, the same math, no
+   communication), moves the first-step gradient to cosine ~0.994 on the
+   same batch.  So a model-axis run's gradient and update cosines may be
+   up to ``MESH_SPLIT_FACTOR`` (2) times as far from 1 as the control's,
+   where that is below phase 8's limit; and each run's float32 twin (depth
+   2, 2 text layers, 16 + 16 clips in all) must give every parameter's
+   gradient within relative L2 1e-4 of one process's (the key biases,
+   zero in exact arithmetic, against 1e-3 of the largest gradient norm)
+   and the loss within 1e-5.  Prints, a run and a rank: step time, peak
+   memory, the all-to-all / all-reduce / all-gather / reduce-scatter calls
+   and MiB a step, the parameters + AdamW state held against the whole.
+   (d), in the same ranks: ViT-B's
+   video tower (phase 5's architecture) with its 12 blocks pipelined
+   (``core/pp.py``) at 2 stages x ``n_micro`` 4 on 8 clips, the output and
+   the gradient (blocks and embedding summed over the stages) against the
+   sequential tower at cosine >= 0.999.  (c) ``cli.train -c
+   configs/pt/egoclip_vitl_tp.json --multihost --backend gloo`` as
+   shipped, two ranks on GPU 0 (``--mesh-cli-worker``), on phase 7's tree:
+   1 epoch of 3 steps of 32 + 32 clips with EgoMCQ validation, no
+   checkpoint (5.26 GiB of weights and AdamW state: the run's disk
+   writes are bounded); then the same at depth 2 with 2 text layers and a
+   checkpoint (the full state dict, gathered).  The ranks' losses and
+   accuracies identical in each; ``cli.eval`` on the checkpoint in this
+   process (strict load, ``mesh.model=1``) equal to the in-run
+   accuracies; and ``--resume`` of it onto ``mesh.model=1`` trains epoch 2
+   (6 steps of 16 + 16) to optimizer step 9.
+
 Phases 3, 3b and 3c also give the library call's own device time
 (``torch.profiler`` over all its kernels: ``library_device_ms``).  The
 last four lines are a JSON object of phase 12's numbers, the
@@ -294,6 +348,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import io
 import json
 import logging
 import os
@@ -358,6 +413,12 @@ TIMED = (16, 4, 196)  # B, f, n of the timed bf16 calls
 TIMED_F16 = (16, 16, 196)  # and of K1/K2 at the 16-frame fine-tune shape
 TIMED_F16_B4 = (4, 16, 196)  # and at the OSCC / PNR batch
 TIMED_VITL = (32, 4, 196)  # and at the ViT-L training step (D 1024, 16 heads)
+# phase 13 (a): K1 / K2 at the local shapes of phase 13's ViT-L runs (32 +
+# 32 clips a rank): tensor parallelism at model 2 (D 512, 8 heads), and
+# sequence parallelism's space phase (2 of 4 frames) and time phase (98 of
+# 196 patch columns) at D 1024
+MESH_SHAPES = {"tp": (64, 4, 196, 512), "sp_space": (64, 2, 196, 1024),
+               "sp_time": (64, 4, 98, 1024)}
 # K3's rows, (patch rows, CLS rows, D): the CLS + patch pairs of a ViT-L
 # step (32 clips x 4 frames x 196 patches + 32 CLS rows) at D 1024, of a
 # ViT-B step at D 768 and of the 16-frame fine-tune step (16 clips x 16 x
@@ -366,11 +427,15 @@ TIMED_VITL = (32, 4, 196)  # and at the ViT-L training step (D 1024, 16 heads)
 # 1024, and the patch rows alone at both widths (the pairs' yardstick)
 LN_CASES = ((25088, 32, VITL_DIM), (25088, 32, DIM), (50176, 16, DIM),
             (960, 0, DIM), (32, 0, VITL_DIM), (25088, 0, VITL_DIM),
-            (25088, 0, DIM))
+            (25088, 0, DIM),
+            # phase 13 (a): a sequence-parallel rank's pairs (64 clips, half
+            # the patches) and a tensor-parallel rank's (every patch)
+            (25088, 64, VITL_DIM), (50176, 64, VITL_DIM))
 # NVIDIA H100 SXM data sheet: HBM bytes/s, dense bf16 tensor FLOP/s and
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
 DEVICE = "cuda"
+PROFILE_SESSIONS = 8  # device_ms's profiler sessions before it gives up
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "a", "person", "cuts", "an",
          "onion", "opens", "the", "door", "picks", "up", "knife", "##s"]
 TEXTS = ["a person cuts an onion", "opens the door", "picks up the knife"]
@@ -469,8 +534,9 @@ def device_ms(fn, iters: int = 20, warmup: int = 3,
         fn()
     torch.cuda.synchronize()
     # a profiler session now and then returns no device events (seen once
-    # in some 20 sessions on the H100), or fewer: up to three sessions
-    for _ in range(3):
+    # in some 20 sessions on the H100), or fewer (three sessions in a row
+    # lost a K3-bwd event at [50176 + 16, 768] in one run): up to eight
+    for _ in range(PROFILE_SESSIONS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -483,9 +549,9 @@ def device_ms(fn, iters: int = 20, warmup: int = 3,
         count = sum(e.count for e in rows)
         if total > 0 and (count % iters == 0 if library else count == iters):
             return total / 1e3 / iters
-    raise RuntimeError("three profiler sessions saw no kernel, or not every "
-                       "launch, of " + ("the call" if library
-                                        else "the repository"))
+    raise RuntimeError(f"{PROFILE_SESSIONS} profiler sessions saw no kernel, "
+                       "or not every launch, of " + ("the call" if library
+                                                     else "the repository"))
 
 
 def misaligned(t):
@@ -651,8 +717,7 @@ def phase_kernels(ca, smi: str) -> dict:
         width (12 at ViT-B's D 768, 16 at ViT-L's 1024: hd 64 both)."""
         if name in HS_KERNELS:
             return fn(*x)
-        heads = VITL_HEADS if x[0].shape[-1] == VITL_DIM else HEADS
-        return fn(*x, heads=heads, scale=SCALE)
+        return fn(*x, heads=x[0].shape[-1] // HD, scale=SCALE)
 
     def check_kernel(name, x, label):
         """Runs the kernel and its plain twin on ``x``, prints and checks
@@ -750,8 +815,7 @@ def phase_kernels(ca, smi: str) -> dict:
         else:
             x = grid_inputs(B, f, n, torch.bfloat16, seed=B + f - 4, grad=bwd,
                             D=D)
-            H = VITL_HEADS if D == VITL_DIM else HEADS
-            lay = sdpa_layout(x, name.split("_")[0], grad=bwd, H=H)
+            lay = sdpa_layout(x, name.split("_")[0], grad=bwd, H=D // HD)
             scale, shape, label = SCALE, [B, f, n, D], f"B{B} D{D}"
             bound, bound_by = bound_ms(name, B, f, n, D=D)
         t_plain = median_ms(lambda: call(plain, name, x))
@@ -810,6 +874,11 @@ def phase_kernels(ca, smi: str) -> dict:
         rows[name]["f16_b4"] = time_kernel(name, *TIMED_F16_B4)
         # and at the ViT-L training step's width (phase 11's main path)
         rows[name]["vitl"] = time_kernel(name, *TIMED_VITL, D=VITL_DIM)
+        # phase 13 (a): at the local shapes of phase 13's mesh runs
+        for label, (B, f, n, D) in MESH_SHAPES.items():
+            if label != ("sp_time" if name.startswith("space") else
+                         "sp_space"):
+                rows[name][f"mesh_{label}"] = time_kernel(name, B, f, n, D=D)
     B, f, n = TIMED
     # K5's scalar body, the route of the shapes the streaming body does not
     # take: at the timed shape with q one element off a 16-byte boundary
@@ -3676,6 +3745,687 @@ def phase_aot(ca, smi: str) -> dict:
                     "latency": lat, "op_cost": costs}
 
 
+# ---- phase 13: mesh parallelism (A13) ---------------------------------------
+
+MESH_CLIPS = 16          # clips a chip (the config's batch_size); + negatives
+MESH_TIMEOUT_S = 900     # each mesh rank's time limit
+MESH_STEPS = 3
+# (b)'s runs at world 2: (name, mesh, sequence_parallel, zero)
+# and clips a chip (the sequence-parallel run is the config as shipped;
+# the others take fewer: gloo moves their tensors through the host)
+MESH_RUNS = (("sp", {"model": 2}, True, 0, MESH_CLIPS),
+             ("tp", {"model": 2}, False, 0, 4),
+             ("zero1", {"data": 2}, False, 1, 4),
+             ("zero3", {"data": 2}, False, 3, 4))
+# phase 8's limits, against one process on the same global batch
+MESH_LOSS_TOL, MESH_GRAD_COS, MESH_QKV_COS = 5e-3, 0.999, 0.99
+MESH_UPDATE_COS = 0.99
+# a model axis splits each layer's GEMM, and a bf16 GEMM split in two
+# rounds otherwise: one process whose tensor-parallel layers run in two
+# halves (``split_layers``, the same math) moved ViT-L's first-step
+# gradient to cosine 0.9943 (NVIDIA H100 80GB HBM3, 700 W).  The
+# model-axis runs may move it at most MESH_SPLIT_FACTOR times as far
+# (1 - cosine) as that control does on the same batch, where phase 8's
+# limits do not hold
+MESH_SPLIT_FACTOR = 2.0
+# the runs with a model axis, whose bf16 sums run in another order (see
+# phase_mesh), and the float32 limits of every run (tests/test_torch_tp_sp.py)
+MESH_MODEL_RUNS = ("sp", "tp")
+MESH_F32_LOSS, MESH_F32_GRAD = 1e-5, 1e-4
+PP_COS = 0.999  # (d): the pipelined tower against the sequential one
+PP_STAGES, PP_MICRO, PP_CLIPS = 2, 4, 8
+
+
+def mesh_sched() -> dict:
+    return dict(base_lr=3e-5, milestones=(60, 80), steps_per_epoch=3)
+
+
+def qkv_names(names) -> list:
+    return [k for k in names
+            if k.endswith(("attn.qkv.weight", "timeattn.qkv.weight"))]
+
+
+def mesh_arch(precision: str = "bf16", impl: str = "auto",
+              depth: int = 24, text_layers: int = 6) -> dict:
+    """Phase 13's ViT-L architecture: the config's 'block' recompute, random
+    time attention, ``precision``, ``attention_impl`` and depths."""
+    arch = copy.deepcopy(vitl_arch(True))
+    arch["args"]["precision"] = precision
+    arch["args"]["video_params"].update(attention_impl=impl, depth=depth)
+    arch["args"]["text_params"]["n_layers"] = text_layers
+    return arch
+
+
+def split_layers(model, m: int = 2) -> None:
+    """The control of phase 13 (b): every Linear that tensor parallelism
+    splits (``core.tp.split_dim``) computes its product in ``m`` parts, as
+    the model ranks do, in one process: a column layer as ``m`` GEMMs over
+    its rank's output rows (the fused qkv head-aligned), concatenated; a
+    row layer as ``m`` partial products over its rank's input features,
+    summed in float32 and rounded once.  The same math as the plain
+    layer; only the bf16 GEMMs' rounding moves."""
+    import torch
+    import torch.nn.functional as F
+
+    from egovlp_tpu_torch.core.precision import Linear
+    from egovlp_tpu_torch.core.tp import shard_slice, split_dim
+
+    for name, mod in model.named_modules():
+        d = (split_dim(f"{name}.weight", tuple(mod.weight.shape), m)
+             if isinstance(mod, Linear) else None)
+        if d is None:
+            continue
+        qkv = name.endswith(".qkv")
+
+        def forward(x, mod=mod, d=d, qkv=qkv):
+            w = mod.weight.to(x.dtype)
+            b = None if mod.bias is None else mod.bias.to(x.dtype)
+            if d == 1:
+                y = sum((xs.float() @ ws.float().t()) for xs, ws in
+                        zip(x.chunk(m, -1), w.chunk(m, 1))).to(x.dtype)
+                return y if b is None else y + b
+            ys = [F.linear(x, shard_slice(w, 0, qkv, r, m))
+                  + (0 if b is None else shard_slice(b, 0, qkv, r, m))
+                  for r in range(m)]
+            if not qkv:
+                return torch.cat(ys, -1)
+            # each rank's [q_r | k_r | v_r] back to [q | k | v]
+            thirds = [y.unflatten(-1, (3, -1)) for y in ys]
+            return torch.cat(thirds, -1).flatten(-2)
+
+        mod.forward = forward
+
+
+def mesh_initial(arch: dict, device) -> dict:
+    """Phase 13's seeded weights of ``arch`` (every process makes the same
+    ones on GPU 0, so none is written to disk)."""
+    from egovlp_tpu_torch import build
+
+    model, _ = build.build_model(arch, device)
+    build.init_params(model, seed=0)
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def mesh_reference(arch: dict, batches: list, initial: dict,
+                   split: bool = False) -> dict:
+    """One process's steps on the global ``batches`` from ``initial``, its
+    layers split as ``split_layers`` splits them when ``split``: the
+    losses, the first step's gradient and the update after the last."""
+    import torch
+
+    from egovlp_tpu_torch import build
+    from egovlp_tpu_torch.train.recipes import step_generator, to_device
+    from egovlp_tpu_torch.train.state import make_optimizer
+    from egovlp_tpu_torch.train.steps import make_egoclip_train_step
+
+    model, _ = build.build_model(arch, DEVICE)
+    model.load_state_dict(initial)
+    if split:
+        split_layers(model)
+    opt, _ = make_optimizer(model, **mesh_sched())
+    first, update = {}, opt.step
+
+    def recorded():
+        if not first:
+            first.update({k: p.grad.detach().cpu().clone()
+                          for k, p in model.named_parameters()})
+        update()
+
+    opt.step = recorded
+    step = make_egoclip_train_step()
+    losses = [step(model, opt, to_device(b, DEVICE),
+                   step_generator(DEVICE, 0, 1, i)).item()
+              for i, b in enumerate(batches)]
+    upd = {k: v.detach().cpu() - initial[k]
+           for k, v in model.state_dict().items()}
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grads": first, "update": upd}
+
+
+def compact(ref: dict, dtype) -> dict:
+    """``ref`` with its tensors in ``dtype`` (bf16 halves the bytes rank 0
+    takes in; the cosines it serves move by ~1e-6)."""
+    return {"losses": ref["losses"],
+            **{k: {n: t.to(dtype) for n, t in ref[k].items()}
+               for k in ("grads", "update")}}
+
+
+def grad_report(got: dict, ref: dict) -> dict:
+    """``got``'s first-step gradient and update against a reference's:
+    the cosines over all parameters, by tower and for every block qkv, and
+    each parameter's relative L2 error (against the larger of its norm and
+    1e-3 of the largest gradient norm: a key bias's gradient is zero in
+    exact arithmetic, float32 noise in both runs)."""
+    keys = list(ref["grads"])
+    g = torch_cat([got["grads"][k] for k in keys])
+    g_ref = torch_cat([ref["grads"][k] for k in keys])
+    qkv = {k: cosine(got["grads"][k], ref["grads"][k])
+           for k in qkv_names(keys)}
+    worst = min(qkv, key=qkv.get)
+    towers = {t: big_cosine(
+        torch_cat([got["grads"][k] for k in keys if k.startswith(t)]),
+        torch_cat([ref["grads"][k] for k in keys if k.startswith(t)]))
+        for t in ("video_model", "text_model", "vid_proj", "txt_proj")}
+    scale = max(float(v.norm()) for v in ref["grads"].values())
+    rel = {k: float((got["grads"][k] - ref["grads"][k]).norm())
+           / max(float(ref["grads"][k].norm()), 1e-3 * scale) for k in keys}
+    top = max(rel, key=rel.get)
+    out = {"d_loss": abs(got["losses"][0] - ref["losses"][0]),
+           "rel_loss": abs(got["losses"][0] - ref["losses"][0])
+           / abs(ref["losses"][0]),
+           "grad_cos": big_cosine(g, g_ref), "qkv_cos": qkv[worst],
+           "qkv_worst": worst, "tower_cos": towers, "max_rel_l2": rel[top],
+           "max_rel_l2_at": top}
+    if "update" in got:
+        out["update_cos"] = big_cosine(
+            torch_cat([got["update"][k] for k in keys]),
+            torch_cat([ref["update"][k] for k in keys]))
+    return out
+
+
+def torch_cat(tensors) -> "torch.Tensor":
+    import torch
+
+    return torch.cat([t.flatten().float() for t in tensors])
+
+
+def phase_mesh(ca, smi: str, root: Path) -> dict:
+    """Phase 13 (b)-(d); (a), the kernels at the mesh's local shapes, runs
+    in phases 3 and 3c.  Returns the kernel launches of the
+    sequence-parallel run's 3 steps on rank 0."""
+    import torch
+
+    from egovlp_tpu_torch.cli import eval as cli_eval
+    from egovlp_tpu_torch.cli import train as cli_train
+
+    tmp = tempfile.TemporaryDirectory()
+    out = Path(tmp.name)
+    try:
+        # ---- (b) the one-process references on the global batches --------
+        # (G + G clips a step: G is 2 x a run's clips a chip), and the
+        # split control of each
+        rng = np.random.default_rng(13)
+        # the references go to rank 0 through its stdin, not the disk: a
+        # machine's disk writes are bounded
+        initial, control, refs = mesh_initial(mesh_arch(), DEVICE), {}, {}
+        split = {2 * c for name, *_, c in MESH_RUNS if name in MESH_MODEL_RUNS}
+        t0 = time.perf_counter()
+        for G in sorted({2 * c for *_, c in MESH_RUNS}, reverse=True):
+            batches = [egoclip_batch(rng, B=G) for _ in range(MESH_STEPS)]
+            np.savez(out / f"b{G}_batches.npz", **{
+                f"{i}/{k}": v for i, b in enumerate(batches)
+                for k, v in b.items()})
+            ref = mesh_reference(mesh_arch(), batches, initial)
+            refs[f"b{G}_"] = compact(ref, torch.bfloat16)
+            text = ""
+            if G in split:
+                control[G] = grad_report(mesh_reference(
+                    mesh_arch(), batches, initial, split=True), ref)
+                text = (f"; the split control (its tensor-parallel layers in "
+                        f"two halves, one process) against it: loss diff "
+                        f"{control[G]['d_loss']:.3e}, gradient cosine "
+                        f"{control[G]['grad_cos']:.6f} (by tower "
+                        f"{control[G]['tower_cos']}), least block qkv cosine "
+                        f"{control[G]['qkv_cos']:.6f}, update cosine "
+                        f"{control[G]['update_cos']:.6f}")
+            print(f"mesh reference: one process, ViT-L remat 'block', {G} + "
+                  f"{G} clips a step: losses "
+                  f"{[round(v, 5) for v in ref['losses']]}{text} [{smi}]",
+                  flush=True)
+            del ref
+        # float32 at depth 2 (2 text layers), 16 + 16 clips in all: the
+        # mesh's gradient must be the one process's, as on the CPU
+        small = [egoclip_batch(np.random.default_rng(14), B=MESH_CLIPS)]
+        np.savez(out / "f32_batches.npz", **{
+            f"0/{k}": v for k, v in small[0].items()})
+        f32_arch = mesh_arch("fp32", depth=2, text_layers=2)
+        refs["f32_"] = mesh_reference(f32_arch, small,
+                                      mesh_initial(f32_arch, DEVICE))
+        buf = io.BytesIO()
+        torch.save(refs, buf)
+        del initial, refs
+        torch.cuda.empty_cache()
+        print(f"elapsed phase 13 references: {time.perf_counter() - t0:.1f} "
+              "s", flush=True)
+        t0 = time.perf_counter()
+
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
+             str(out)], env={**os.environ, **ddp_env(r, 2, port)},
+            stdin=subprocess.PIPE if r == 0 else subprocess.DEVNULL,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(2)]
+        outs = wait_ranks(procs, "mesh", {0: buf.getbuffer()})
+        del buf
+        print(f"elapsed phase 13 (b), (d) ranks: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        res = [json.loads((out / f"rank{r}.json").read_text())
+               for r in range(2)]
+        want = vitl_step_counts("block")
+        bad = []
+        for name, _, sp, zero, clips in MESH_RUNS:
+            f32 = res[0]["f32"][name]
+            print(f"mesh {name} float32 (depth 2, 2 text layers, 16 + 16 "
+                  f"clips in all) vs one process: loss rel diff "
+                  f"{f32['rel_loss']:.2e} (tol {MESH_F32_LOSS:.0e}), every "
+                  f"parameter's gradient within relative L2 "
+                  f"{f32['max_rel_l2']:.2e} (tol {MESH_F32_GRAD:.0e}, "
+                  f"largest at {f32['max_rel_l2_at']}) [{smi}]", flush=True)
+            if (f32["rel_loss"] > MESH_F32_LOSS
+                    or f32["max_rel_l2"] > MESH_F32_GRAD):
+                bad.append(f"mesh {name}: float32 gradient off")
+            runs = [x[name] for x in res]
+            rep = runs[0]["report"]
+            same = runs[0]["losses"] == runs[1]["losses"]
+            ctl = control.get(2 * clips)
+            # a model axis splits the GEMMs: phase 8's limits, or the split
+            # control's distance times MESH_SPLIT_FACTOR where that is
+            # further (see MESH_SPLIT_FACTOR)
+            lim = {k: (min(v, 1 - MESH_SPLIT_FACTOR * (1 - ctl[k]))
+                       if name in MESH_MODEL_RUNS else v)
+                   for k, v in (("grad_cos", MESH_GRAD_COS),
+                                ("update_cos", MESH_UPDATE_COS))}
+            lim["qkv_cos"] = MESH_QKV_COS
+            print(f"mesh {name} (world 2 over gloo on GPU 0, "
+                  f"{runs[0]['mesh']}, {clips} + {clips} clips a chip): "
+                  f"losses {runs[0]['losses']} (rank 1 "
+                  f"{'the same' if same else runs[1]['losses']}); first "
+                  f"step vs one process: loss diff {rep['d_loss']:.3e} (tol "
+                  f"{MESH_LOSS_TOL}), gradient cosine {rep['grad_cos']:.6f} "
+                  f"(>= {lim['grad_cos']:.6f}; by tower {rep['tower_cos']}), "
+                  f"least block qkv cosine {rep['qkv_cos']:.6f} (>= "
+                  f"{lim['qkv_cos']:.6f}, {rep['qkv_worst']}); update after "
+                  f"{MESH_STEPS} steps: cosine {rep['update_cos']:.6f} (>= "
+                  f"{lim['update_cos']:.6f}) [{smi}]", flush=True)
+            for r, x in enumerate(runs):
+                t = x["traffic"]
+                per = {k: t.get(k, 0) / MESH_STEPS for k in
+                       ("all_to_all", "all_reduce", "all_gather",
+                        "reduce_scatter")}
+                mib = {k: t.get(f"{k}_bytes", 0) / MESH_STEPS / 2**20
+                       for k in per}
+                print(f"mesh {name} rank {r}: step median "
+                      f"{statistics.median(x['step_ms'][1:]):.1f} ms "
+                      f"({[round(v, 1) for v in x['step_ms']]}), peak memory "
+                      f"{x['peak_gib']:.2f} GiB; a step: "
+                      + ", ".join(f"{k} {per[k]:.0f} calls {mib[k]:.1f} MiB"
+                                  for k in per)
+                      + f"; parameters + AdamW state {x['state_gib']:.3f} GiB"
+                      f" on this rank, {x['state_whole_gib']:.3f} GiB whole; "
+                      f"launches a step "
+                      f"{({k: v // MESH_STEPS for k, v in x['launches'].items()})}"
+                      f" [{smi}]", flush=True)
+                bad += [f"mesh {name} rank {r}: {k} {c} launches in "
+                        f"{MESH_STEPS} steps, expected "
+                        f"{MESH_STEPS * want.get(k, 0)}"
+                        for k, c in x["launches"].items()
+                        if c != MESH_STEPS * want.get(k, 0)]
+            if not same:
+                bad.append(f"mesh {name}: the ranks' losses differ")
+            if rep["d_loss"] > MESH_LOSS_TOL:
+                bad.append(f"mesh {name}: loss off")
+            if (rep["grad_cos"] < lim["grad_cos"]
+                    or rep["qkv_cos"] < lim["qkv_cos"]):
+                bad.append(f"mesh {name}: not the one-process gradient")
+            if rep["update_cos"] < lim["update_cos"]:
+                bad.append(f"mesh {name}: the parameters diverge")
+            if sp:
+                a2a = runs[0]["traffic"].get("all_to_all", 0) / MESH_STEPS
+                # 2 a block in the forward and in the recompute, 2 a block
+                # but the last one's patch path in the backward
+                if a2a != 2 * 24 * 3 - 1:
+                    bad.append(f"mesh {name}: {a2a} all_to_all a step")
+        pp = res[0]["pp"]
+        print(f"mesh (d) pipeline: ViT-B's 12 blocks at {PP_STAGES} stages x "
+              f"n_micro {PP_MICRO}, {PP_CLIPS} clips, bf16: output cosine "
+              f"{pp['out_cos']:.6f}, gradient cosine {pp['grad_cos']:.6f} "
+              f"(>= {PP_COS}) against the sequential tower; pipelined "
+              f"{pp['pp_ms']:.1f} ms, sequential {pp['seq_ms']:.1f} ms "
+              f"(forward + backward, rank 0) [{smi}]", flush=True)
+        check(not bad, "; ".join(bad))
+        check(pp["out_cos"] >= PP_COS and pp["grad_cos"] >= PP_COS,
+              "the pipelined tower is not the sequential one")
+        launches = res[0]["sp"]["launches"]
+        del res, outs
+
+        # ---- (c) cli.train as shipped, two ranks ------------------------
+        # at full width without a checkpoint (5.26 GiB of weights and
+        # AdamW state), then at a tiny depth with one
+        data = root / "data"
+        runs = [("as shipped", mesh_cli_overrides(
+                    data, root / "mesh_results", save=False)),
+                ("depth 2, 2 text layers, checkpoint", mesh_cli_overrides(
+                    data, root / "mesh_tiny", save=True) + [
+                    "arch.args.video_params.depth=2",
+                    "arch.args.text_params.n_layers=2"])]
+        # a port for each run: each cli.train makes and ends its own group
+        (out / "cli.json").write_text(json.dumps({
+            "runs": [ov for _, ov in runs],
+            "ports": [free_port() for _ in runs]}))
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--mesh-cli-worker", str(out)],
+            env={**os.environ, **ddp_env(r, 2, port)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        t0 = time.perf_counter()
+        wait_ranks(procs, "mesh cli")
+        print(f"elapsed phase 13 (c) ranks: {time.perf_counter() - t0:.1f} "
+              "s", flush=True)
+        res = [json.loads((out / f"cli{r}.json").read_text())
+               for r in range(2)]
+        for i, (label, ov) in enumerate(runs):
+            for r, x in enumerate(res):
+                x = x[i]
+                print(f"mesh cli.train -c {VITL_CONFIG} --multihost "
+                      f"--backend gloo ({label}), rank {r}: losses "
+                      f"{x['losses']}, EgoMCQ {x['metrics']}, launches "
+                      f"{x['launches']}, loop median step end to step end "
+                      f"{x['loop_ms']:.1f} ms, peak memory "
+                      f"{x['peak_gib']:.2f} GiB [{smi}]", flush=True)
+                check(x["steps"] == 3 and all(np.isfinite(x["losses"])),
+                      f"mesh cli rank {r}: {x['steps']} steps, {x['losses']}")
+            check(res[0][i]["losses"] == res[1][i]["losses"],
+                  f"mesh cli ({label}): the ranks' losses differ")
+            check(res[0][i]["metrics"] == res[1][i]["metrics"],
+                  f"mesh cli ({label}): the ranks' accuracies differ")
+        label, ov = runs[1]
+        (run_dir,) = (root / "mesh_tiny" / "models" /
+                      "EgoClip_4f_ViTL_tp_sp").iterdir()
+        ckpt = run_dir / "checkpoint-epoch1.pth"
+        check(ckpt.exists(), "mesh cli: no checkpoint")
+        mib = ckpt.stat().st_size / 2**20
+        one = cli_eval.main(["--config", str(ROOT / VITL_CONFIG),
+                             "--checkpoint", str(ckpt), "-o", "mesh.model=1",
+                             *[a for o in ov for a in ("-o", o)]])
+        print(f"mesh cli ({label}): rank 0's checkpoint ({mib:.0f} MiB) "
+              f"strictly into one process: cli.eval {one}; the ranks' in-run "
+              f"validation {res[0][1]['metrics']}", flush=True)
+        check(one == res[0][1]["metrics"],
+              "mesh cli: one process's accuracies differ from the ranks'")
+        model, opt = cli_train.main([
+            "--config", str(ROOT / VITL_CONFIG), "--resume", str(ckpt),
+            *[a for o in ov + ["mesh.model=1", "trainer.epochs=2",
+                               "trainer.save_period=100"]
+              for a in ("-o", o)]])
+        count = opt.param_groups[0]["count"]
+        print(f"mesh cli: --resume onto mesh.model=1 trained epoch 2 to "
+              f"optimizer step {count}", flush=True)
+        check(count == 3 + 6, f"mesh cli resume: optimizer count {count}")
+        del model, opt
+        torch.cuda.empty_cache()
+    finally:
+        tmp.cleanup()
+    return launches
+
+
+def mesh_cli_overrides(data: Path, save_dir: Path, save: bool) -> list:
+    """``cli.train`` on the ViT-L config as shipped, on phase 7's tree: 1
+    epoch of 3 steps (a data replica of 2 ranks takes 32 + 32 clips, the
+    tree's 96 narrations), a checkpoint when ``save``, no monitor."""
+    return tree_overrides(data) + [
+        'arch.args.video_params.time_init="random"',
+        f"trainer.save_dir={json.dumps(str(save_dir))}",
+        "trainer.epochs=1", "trainer.max_samples_per_epoch=96",
+        f"trainer.save_period={1 if save else 100}",
+        'trainer.monitor="off"']
+
+
+def wait_ranks(procs, label: str, stdin: dict = None) -> list:
+    """Each rank's output (text); every rank must exit 0 within
+    ``MESH_TIMEOUT_S`` (the others are killed when one does not).
+    ``stdin``: rank -> the bytes its standard input takes."""
+    stdin = stdin or {}
+    try:
+        outs = [p.communicate(input=stdin.get(r), timeout=MESH_TIMEOUT_S)[0]
+                for r, p in enumerate(procs)]
+        outs = [o.decode(errors="replace") if isinstance(o, bytes) else o
+                for o in outs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        tail = "\n".join(o.splitlines()[-25:])
+        print(f"{label} rank {r} exit {p.returncode}, output tail:\n{tail}",
+              flush=True)
+        check(p.returncode == 0, f"{label} rank {r} failed")
+    return outs
+
+
+def mesh_runs(arch: dict, initial: dict, data, device,
+              timed: bool) -> dict:
+    """Each of ``MESH_RUNS`` on this rank: ``arch`` from ``initial`` on its
+    data rank's rows of the global batches ``data(clips)`` gives with
+    their one-process reference (None on ranks but 0); rank 0 reports the
+    first-step gradient (reduced over the mesh, gathered whole) and the
+    update against the reference's.  ``timed``: launches, collectives,
+    step times, peak memory and state bytes too."""
+    import torch
+
+    from egovlp_tpu_torch import build
+    from egovlp_tpu_torch.core import collectives
+    from egovlp_tpu_torch.core.mesh import MeshSpec, create_mesh, shard_batch
+    from egovlp_tpu_torch.core.zero import apply_mesh, full_state
+    from egovlp_tpu_torch.kernels import cuda_attention as ca
+    from egovlp_tpu_torch.train.recipes import step_generator
+    from egovlp_tpu_torch.train.state import make_optimizer
+    from egovlp_tpu_torch.train.steps import make_egoclip_train_step
+
+    log = logging.getLogger("chip_smoke")
+    results = {}
+    for name, mesh, sp, zero, clips in MESH_RUNS:
+        batches, ref = data(clips)
+        model, _ = build.build_model(arch, device)
+        model.load_state_dict(initial)
+        opt, _ = make_optimizer(model, **mesh_sched())
+        grid = create_mesh(MeshSpec(**mesh))
+        with grid:
+            update = apply_mesh(model, opt, grid, sequence_parallel=sp,
+                                zero=zero, logger=log)
+            names = {id(p): k for k, p in model.named_parameters()}
+            first, reduce = {}, update.gradients
+
+            def recorded(params):
+                grads, targets = reduce(params)
+                if "_done" not in first:
+                    for ps, gs in zip(params, grads):
+                        for p, g in zip(ps, gs):
+                            whole = update.full(g, p, True)
+                            if ref is not None:
+                                first[names[id(p)]] = whole.cpu()
+                    first["_done"] = True
+                return grads, targets
+
+            update.gradients = recorded
+            step = make_egoclip_train_step()
+            local = [shard_batch(b, grid, device) for b in batches]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ca.reset_launch_counts()
+            collectives.traffic.clear()
+            losses, times = [], []
+            for i, b in enumerate(local):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(step(model, opt, b,
+                                   step_generator(DEVICE, 0, 1, i)).item())
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            run = {"mesh": mesh, "losses": losses}
+            if timed:
+                state = sum(p.numel() * p.element_size()
+                            for p in model.parameters())
+                state += sum(v.numel() * v.element_size()
+                             for st in opt.state.values()
+                             for v in st.values() if torch.is_tensor(v))
+                whole = 3 * sum(int(np.prod(v.shape)) * 4
+                                for v in initial.values())
+                run.update({"step_ms": times, "launches": dict(ca.launches),
+                            "traffic": dict(collectives.traffic),
+                            "peak_gib": torch.cuda.max_memory_allocated()
+                            / 2**30, "state_gib": state / 2**30,
+                            "state_whole_gib": whole / 2**30})
+            sd, _ = full_state(model, opt)
+            if ref is not None:
+                first.pop("_done")
+                got = {"losses": losses, "grads": first,
+                       "update": {k: sd[k].cpu() - initial[k]
+                                  for k in ref["grads"]}}
+                run["report"] = grad_report(got, ref)
+                run.update({k: run["report"][k] for k in
+                            ("rel_loss", "max_rel_l2", "max_rel_l2_at")})
+                del got
+            results[name] = run
+        del model, opt, update, sd, first, local
+        torch.cuda.empty_cache()
+    return results
+
+
+def mesh_worker(out: Path) -> None:
+    """One rank of phase 13 (b) and (d) (``chip_smoke.py --mesh-worker
+    OUT``): gloo on GPU 0; ``MESH_RUNS`` at bf16 on the reference's 3
+    global batches and at float32 on the small one; then the pipeline.
+    Results to ``OUT/rank{r}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from egovlp_tpu_torch.core.dist import init_distributed
+    from egovlp_tpu_torch.train.recipes import resolve_device
+
+    rank, world = init_distributed("cuda", backend="gloo")
+    device = resolve_device("cuda")
+
+    # rank 0's references, sent on its stdin by phase 13
+    refs = (torch.load(io.BytesIO(sys.stdin.buffer.read()), weights_only=True)
+            if rank == 0 else {})
+
+    def inputs(prefix, n):
+        npz = np.load(out / f"{prefix}batches.npz")
+        batches = [{k.split("/", 1)[1]: npz[k] for k in npz.files
+                    if k.startswith(f"{i}/")} for i in range(n)]
+        return batches, refs.get(prefix)
+
+    results = mesh_runs(mesh_arch(), mesh_initial(mesh_arch(), device),
+                        lambda clips: inputs(f"b{2 * clips}_", MESH_STEPS),
+                        device, timed=True)
+    small = inputs("f32_", 1)
+    f32_arch = mesh_arch("fp32", depth=2, text_layers=2)
+    results["f32"] = mesh_runs(f32_arch, mesh_initial(f32_arch, device),
+                               lambda clips: small, device, timed=False)
+    results["pp"] = pipeline_check(rank, device)
+    (out / f"rank{rank}.json").write_text(json.dumps(results))
+    dist.destroy_process_group()
+    print(f"mesh worker rank {rank} of {world}: done", flush=True)
+
+
+def pipeline_check(rank: int, device) -> dict:
+    """Phase 13 (d) on this rank: ViT-B's video tower (phase 5's
+    architecture, bf16, random time attention) with its 12 blocks
+    pipelined over the world (2 stages), ``n_micro`` 4, against the
+    sequential tower on the same clips: the output, and the gradient of
+    ``sum(out * cotangent)`` (blocks and embedding summed over the stages,
+    the head's from this stage)."""
+    import torch
+    import torch.distributed as dist
+
+    from egovlp_tpu_torch import build
+    from egovlp_tpu_torch.core.pp import stage_owner, video_tower_pp_apply
+
+    arch, _, _ = train_setup()
+    model, _ = build.build_model(arch, device)
+    build.init_params(model, seed=0)
+    tower = model.video_model.eval()
+    g = torch.Generator(device=device).manual_seed(5)
+    video = torch.randn(PP_CLIPS, 4, 224, 224, 3, device=device, generator=g)
+    cot = torch.randn(PP_CLIPS, tower.cfg.embed_dim, device=device,
+                      generator=g)
+    group = dist.group.WORLD
+
+    def pp_pass():
+        tower.zero_grad(set_to_none=True)
+        out = video_tower_pp_apply(tower, video, n_stages=PP_STAGES,
+                                   n_micro=PP_MICRO, stage_group=group)
+        (out.float() * cot).sum().backward()
+        return out
+
+    pp_pass()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pp_pass()
+    torch.cuda.synchronize()
+    pp_ms = (time.perf_counter() - t0) * 1e3
+    depth = len(tower.blocks)
+    grads = {}
+    for k, p in tower.named_parameters():
+        gk = p.grad if p.grad is not None else torch.zeros_like(p)
+        if stage_owner(k, depth, PP_STAGES) is not None:
+            gk = gk.clone()
+            dist.all_reduce(gk)
+        grads[k] = gk.detach().float().cpu()
+    tower.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = tower(video)
+    (want.float() * cot).sum().backward()
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    keys = list(grads)
+    got = torch.cat([grads[k].flatten() for k in keys])
+    ref = torch.cat([dict(tower.named_parameters())[k].grad.float().cpu()
+                     .flatten() for k in keys])
+    return {"out_cos": cosine(out.float().cpu(), want.float().cpu()),
+            "grad_cos": cosine(got, ref), "pp_ms": pp_ms, "seq_ms": seq_ms}
+
+
+def mesh_cli_worker(out: Path) -> None:
+    """One rank of phase 13 (c) (``chip_smoke.py --mesh-cli-worker OUT``):
+    ``cli.train`` on the ViT-L config with ``--multihost --backend gloo``
+    (both ranks on GPU 0) and each override list of ``OUT/cli.json`` (each
+    run its own port), its steps and validations recorded; results to
+    ``OUT/cli{r}.json``."""
+    import torch
+
+    from egovlp_tpu_torch.cli import train as cli_train
+    from egovlp_tpu_torch.kernels import cuda_attention as ca
+    from egovlp_tpu_torch.train import recipes
+
+    ends, losses, vals = [], [], []
+    evaluate = recipes.evaluate_egomcq
+
+    def recorded_evaluate(model, loader, input_res=224):
+        vals.append(evaluate(model, loader, input_res))
+        return vals[-1]
+
+    recipes.make_egoclip_train_step = timed_step_maker(
+        recipes.make_egoclip_train_step, ends, losses)
+    recipes.evaluate_egomcq = recorded_evaluate
+    results, spec = [], json.loads((out / "cli.json").read_text())
+    for ov, port in zip(spec["runs"], spec["ports"]):
+        os.environ["MASTER_PORT"] = str(port)
+        ends.clear(), losses.clear(), vals.clear()
+        ca.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        cli_train.main(["--config", str(ROOT / VITL_CONFIG), "--multihost",
+                        "--backend", "gloo",
+                        *[a for o in ov for a in ("-o", o)]])
+        torch.cuda.synchronize()
+        results.append({
+            "losses": [float(v) for v in losses], "steps": len(ends),
+            "metrics": vals[0] if vals else None,
+            "launches": dict(ca.launches),
+            "loop_ms": statistics.median(a.elapsed_time(b)
+                                         for a, b in zip(ends, ends[1:])),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        torch.cuda.empty_cache()
+    rank = int(os.environ["RANK"])
+    (out / f"cli{rank}.json").write_text(json.dumps(results))
+
+
 def main() -> None:
     import torch
 
@@ -3690,6 +4440,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--ddp-worker"]:  # a rank of phase 8 (b)
         ddp_worker(Path(sys.argv[2]), Path(sys.argv[3]))
+        return
+    if sys.argv[1:2] == ["--mesh-worker"]:  # a rank of phase 13 (b), (d)
+        mesh_worker(Path(sys.argv[2]))
+        return
+    if sys.argv[1:2] == ["--mesh-cli-worker"]:  # a rank of phase 13 (c)
+        mesh_cli_worker(Path(sys.argv[2]))
         return
 
     smi = subprocess.run(
@@ -3749,31 +4505,47 @@ def main() -> None:
           f"of {VITL_DIM // VITL_HEADS}) run the hd {HD} instantiations above",
           flush=True)
 
+    clock = [time.perf_counter()]
+
+    def lap(label: str) -> None:
+        """The phase's wall seconds (the run must end within 1200 s)."""
+        import torch
+
+        torch.cuda.empty_cache()
+        now = time.perf_counter()
+        print(f"elapsed {label}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
     rows = phase_kernels(ca, smi)
+    lap("phase 3, 3b")
     rows.update(phase_layer_norm(smi))
+    lap("phase 3c")
     serve_counts, _ = phase_slice(ca, smi)
-    torch.cuda.empty_cache()
+    lap("phase 4")
     train_counts, ref = phase_train(ca, smi)
-    torch.cuda.empty_cache()
+    lap("phase 5")
     hs_counts = phase_head_split(ca, smi)
-    torch.cuda.empty_cache()
+    lap("phase 6")
     tree = tempfile.TemporaryDirectory()
     try:
         cli_counts = phase_train_cli(ca, smi, Path(tree.name))
-        torch.cuda.empty_cache()
+        lap("phase 7")
         ddp_counts = phase_ddp(ca, smi, ref, Path(tree.name) / "data")
-        torch.cuda.empty_cache()
+        lap("phase 8")
         ft_counts = phase_finetune(ca, smi, Path(tree.name) / "finetune")
-        torch.cuda.empty_cache()
+        lap("phase 9")
         sc_counts = phase_oscc_pnr(ca, smi, Path(tree.name) / "ego4d")
-        torch.cuda.empty_cache()
+        lap("phase 10 (a)")
         em_counts = phase_extract(ca, smi, Path(tree.name) / "ego4d")
-        torch.cuda.empty_cache()
+        lap("phase 10 (b)")
         vitl_counts = phase_vitl(ca, smi, Path(tree.name))
+        lap("phase 11")
+        mesh_counts = phase_mesh(ca, smi, Path(tree.name))
+        lap("phase 13 (b)-(d)")
     finally:
         tree.cleanup()
-    torch.cuda.empty_cache()
     aot_counts, aot = phase_aot(ca, smi)
+    lap("phase 12")
 
     def sources(name):
         return {"source": f"egovlp_tpu_torch/kernels/csrc/{name}.cu",
@@ -3791,7 +4563,8 @@ def main() -> None:
                                      "oscc_pnr16": sc_counts[name],
                                      "extract": em_counts[name],
                                      "vitl_cli": vitl_counts[name],
-                                     "aot_serving": aot_counts[name]},
+                                     "aot_serving": aot_counts[name],
+                                     "mesh_sp_rank0": mesh_counts[name]},
                 **rows[name]}
                for name, replaces in {**KERNELS, **LN_KERNELS}.items()]
     kernels += [{"name": name, "route": "cuda", **sources(name),

@@ -6,7 +6,8 @@ same ``arch.args`` schema, with ``drop_path_rate`` and ``remat``),
 ``load_pretrained`` (torch ``.pth`` files only), ``build_tokenizer``,
 ``build_dataset`` and ``build_loader``.  A loader's batch size is per
 process, and each process drives one GPU; the shard is the process's
-``torch.distributed`` rank when that is initialized, else 0 of 1.
+data rank (``core.mesh.data_shard``: the ``torch.distributed`` rank
+without a mesh, 0 of 1 in one process).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from egovlp_tpu_torch.core.dist import process_shard
+from egovlp_tpu_torch.core.mesh import data_shard
 from egovlp_tpu_torch.core.precision import Linear, compute_dtype
 from egovlp_tpu_torch.data.datasets import DatasetConfig, dataset_factory
 from egovlp_tpu_torch.data.pipeline import Loader
@@ -202,7 +203,7 @@ def build_loader(dl_args: Dict[str, Any], split: str,
                  batch_size: Optional[int] = None,
                  max_samples_per_epoch: Optional[int] = None) -> Loader:
     ds = build_dataset(dl_args, split)
-    shard, num_shards = process_shard()
+    shard, num_shards = data_shard()
     return Loader(
         ds,
         batch_size=batch_size or int(dl_args.get("batch_size", 16)),

@@ -14,7 +14,9 @@ all-gathered (``dist.all_gather``) and trimmed.  Python objects travel
 pickled, as bytes, the same way.  NCCL moves CUDA tensors only, so under
 NCCL the columns pass through the current GPU; under gloo they stay on
 the CPU.  In one process (``torch.distributed`` not initialized, or a
-world of 1) the gather is the identity and the dedupe a no-op.
+world of 1) the gather is the identity and the dedupe a no-op.  Under a
+mesh the gather runs over the data group: the model ranks of a data
+replica evaluated the same rows.
 """
 
 from __future__ import annotations
@@ -26,20 +28,27 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from egovlp_tpu_torch.core.dist import process_shard
+from egovlp_tpu_torch.core.mesh import data_group, data_shard
+
+
+def process_shard():
+    """(rank, size) of the ranks the gather runs over: the data group's
+    (the world's without a mesh)."""
+    return data_shard()
 
 
 def _comm_device() -> torch.device:
-    if dist.get_backend() == "nccl":
+    if dist.get_backend(data_group()) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
 
 def _all_gather(x: np.ndarray) -> List[np.ndarray]:
-    """Every rank's ``x`` (the same shape on every rank), in rank order."""
+    """Every data rank's ``x`` (the same shape on every rank), in rank
+    order."""
     t = torch.from_numpy(np.ascontiguousarray(x)).to(_comm_device())
     parts = [torch.empty_like(t) for _ in range(process_shard()[1])]
-    dist.all_gather(parts, t)
+    dist.all_gather(parts, t, group=data_group())
     return [p.cpu().numpy() for p in parts]
 
 

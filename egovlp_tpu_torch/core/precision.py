@@ -27,10 +27,17 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
 
 class Linear(nn.Linear):
     """``nn.Linear`` computing ``linear``: float32 parameters, the matmul
-    and the bias add in the activation dtype."""
+    and the bias add in the activation dtype.  ``reduce(x, weight)``, set
+    on a row-parallel layer (``core/tp.py``), is the product summed over
+    the model group; the bias is added after it."""
+
+    reduce = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(x, self.weight, self.bias)
+        if self.reduce is None:
+            return linear(x, self.weight, self.bias)
+        y = self.reduce(x, self.weight)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 @functools.cache

@@ -15,7 +15,11 @@ from the JAX package is not read: export it to a ``.pth`` first
 In a multi-process run rank 0 alone writes, the module inside a
 ``DistributedDataParallel`` wrapper (no ``module.`` prefixes, so that a
 one-process run, ``cli.eval`` and the reference's loader read it), and
-every rank waits at a barrier after a save; every rank restores.
+every rank waits at a barrier after a save; every rank restores.  Under a
+mesh every rank first gathers the tensor-parallel and ZeRO shards
+(``core.zero.full_state``), so the file holds the full state dict under
+the reference names: it loads strictly into a one-process model, and a
+resume re-shards it onto any mesh.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from egovlp_tpu_torch.core.dist import barrier, is_main_process, unwrap
+from egovlp_tpu_torch.core.zero import full_state
 
 ARCH = "FrozenInTime"
 
@@ -43,13 +48,14 @@ class CheckpointManager:
                    optimizer: torch.optim.Optimizer, monitor_best: float,
                    is_best: bool = False) -> Path:
         path = self.directory / f"checkpoint-epoch{epoch}.pth"
+        state_dict, opt_state = full_state(unwrap(model), optimizer)
         if is_main_process():
             payload = {
-                "state_dict": unwrap(model).state_dict(),
+                "state_dict": state_dict,
                 "epoch": int(epoch),
                 "monitor_best": float(monitor_best),
                 "arch": ARCH,
-                "optimizer": optimizer.state_dict(),
+                "optimizer": opt_state,
                 "step": int(optimizer.param_groups[0].get("count", 0)),
             }
             self._write(path, payload)

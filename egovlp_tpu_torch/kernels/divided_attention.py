@@ -66,7 +66,7 @@ def _cls_row_parts(qc, kc, vc, kp, vp, heads: int, scale: float):
 
 
 def _time_xla_parts(qc, kc, vc, qp, kp, vp, heads: int, scale: float,
-                    relayout: bool = False):
+                    relayout: bool = False, cls_row=_cls_row_parts):
     """The time axis in plain torch at the rounding points of the JAX XLA
     paths ``_time_xla_parts`` (:193) and, with ``relayout``,
     ``_time_xla_parts_v2`` (:255), whose one explicit ``[B, n, H, f, hd]``
@@ -90,11 +90,11 @@ def _time_xla_parts(qc, kc, vc, qp, kp, vp, heads: int, scale: float,
     out = (pr[..., 1:].float() @ v6.float()).to(dt)
     out = out + pr[..., :1] * vc.reshape(B, 1, heads, 1, hd)
     out_p = out.permute(0, 3, 1, 2, 4).reshape(B, f, n, D)
-    return _cls_row_parts(qc, kc, vc, kp, vp, heads, scale), out_p
+    return cls_row(qc, kc, vc, kp, vp, heads, scale), out_p
 
 
 def divided_attention_parts(qc, kc, vc, qp, kp, vp, *, heads: int,
-                            axis: str, impl: str = "pallas"):
+                            axis: str, impl: str = "pallas", cls_row=None):
     """Divided attention on the pair layout.
 
     Args:
@@ -107,6 +107,9 @@ def divided_attention_parts(qc, kc, vc, qp, kp, vp, *, heads: int,
         ``divided_attention_bsd(impl='xla')`` on ``[cls; patches]``, CLS
         row included; on time, ``_time_xla_parts``.  ``'xla2'`` (time
         only): ``_time_xla_parts`` with the explicit relayout.
+      cls_row: the CLS row's function, ``_cls_row_parts`` unless given
+        (``core.sp.cls_row_parts`` under sequence parallelism, where the
+        patches are this rank's shard).
 
     Returns ``(cls_out [B, 1, D], out_p [B, f, n, D])``.
     """
@@ -116,6 +119,7 @@ def divided_attention_parts(qc, kc, vc, qp, kp, vp, *, heads: int,
                          f"{impl!r}")
     B, f, n, D = qp.shape
     scale = float(D // heads) ** -0.5
+    cls_row = cls_row or _cls_row_parts
     if impl == "pallas":
         if ca.forward_only():
             fwd = (ca.space_attention_fwd if axis == "space"
@@ -124,10 +128,10 @@ def divided_attention_parts(qc, kc, vc, qp, kp, vp, *, heads: int,
         else:
             fn = SpaceAttention if axis == "space" else TimeAttention
             out_p = fn.apply(qp, kp, vp, kc, vc, heads, scale)
-        return _cls_row_parts(qc, kc, vc, kp, vp, heads, scale), out_p
+        return cls_row(qc, kc, vc, kp, vp, heads, scale), out_p
     if axis == "time":
         return _time_xla_parts(qc, kc, vc, qp, kp, vp, heads, scale,
-                               relayout=impl == "xla2")
+                               relayout=impl == "xla2", cls_row=cls_row)
 
     def cat(c, t):
         return torch.cat([c, t.reshape(B, f * n, D)], dim=1)
@@ -135,7 +139,9 @@ def divided_attention_parts(qc, kc, vc, qp, kp, vp, *, heads: int,
     out = divided_attention_bsd(cat(qc, qp), cat(kc, kp), cat(vc, vp),
                                 heads=heads, frames=f, patches=n,
                                 axis="space", impl="xla")
-    return out[:, :1], out[:, 1:].reshape(B, f, n, D)
+    oc = (out[:, :1] if cls_row is _cls_row_parts
+          else cls_row(qc, kc, vc, kp, vp, heads, scale))
+    return oc, out[:, 1:].reshape(B, f, n, D)
 
 
 def divided_attention(q, k, v, *, frames: int, patches: int, axis: str,

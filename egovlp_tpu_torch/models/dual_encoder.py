@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from egovlp_tpu_torch.core.precision import Linear
+from egovlp_tpu_torch.core.sp import scale_grad
 from egovlp_tpu_torch.models.text_tower import DistilBert, TextTowerConfig
 from egovlp_tpu_torch.models.video_tower import (
     SpaceTimeTransformer,
@@ -55,8 +56,12 @@ class DualEncoder(nn.Module):
 
     def encode_video(self, video, generator: "torch.Generator | None" = None):
         """``[B, T, H, W, 3]`` -> ``[B, projection_dim]`` float32;
-        ``generator`` draws the drop-path masks in training mode."""
-        return self.vid_proj(self.video_model(video, generator)).float()
+        ``generator`` draws the drop-path masks in training mode.  Under
+        sequence parallelism its gradient is scaled by ``1 / m``: every
+        model rank carries a part of the CLS stream's (``core/sp.py``)."""
+        v = self.vid_proj(self.video_model(video, generator)).float()
+        sp = self.video_model.sp
+        return v if sp is None else scale_grad(v, 1.0 / sp.size)
 
     def encode_text(self, input_ids, attention_mask):
         """-> ``[B, projection_dim]`` CLS-pooled projected text embedding."""

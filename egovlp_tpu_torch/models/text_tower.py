@@ -6,7 +6,11 @@ Counterpart of ``egovlp_tpu/models/text_tower.py``: 6 post-LN blocks, dim
 (``embeddings.LayerNorm``, ``transformer.layer.{i}.ffn.lin1``, ...), the
 names of the reference checkpoints.  Attention stays plain torch: scores
 in float32, masked keys set to ``finfo(float32).min``, probabilities cast
-to the activation dtype before the value matmul.
+to the activation dtype before the value matmul.  Under tensor
+parallelism (``core/tp.py``) an attention or FFN holds its model rank's
+heads or hidden features and ``tp_group`` is set: its input enters
+through ``enter_columns`` and its column-parallel layers run as
+``column_linear``.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 from torch import nn
 
 from egovlp_tpu_torch.core.precision import Linear, gelu
+from egovlp_tpu_torch.core.tp import column_linear, enter_columns
 from egovlp_tpu_torch.kernels.fused_ln import FusedLayerNorm
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -50,6 +55,8 @@ class Embeddings(nn.Module):
 
 
 class SelfAttention(nn.Module):
+    tp_group = None
+
     def __init__(self, cfg: TextTowerConfig, device=None):
         super().__init__()
         self.n_heads = cfg.n_heads
@@ -59,16 +66,23 @@ class SelfAttention(nn.Module):
         self.out_lin = Linear(cfg.dim, cfg.dim, device=device)
 
     def forward(self, x, attention_mask):
-        B, S, D = x.shape
+        B, S, _ = x.shape
         H = self.n_heads
+        layers = (self.q_lin, self.k_lin, self.v_lin)
+        if self.tp_group is None:
+            q, k, v = (layer(x) for layer in layers)
+        else:
+            x32 = enter_columns(x, self.tp_group)
+            q, k, v = (column_linear(x32, layer, x.dtype) for layer in layers)
+        D = q.shape[-1]  # this rank's heads' width
         hd = D // H
 
         def heads(t):
             return t.reshape(B, S, H, hd).transpose(1, 2)
 
-        q = heads(self.q_lin(x)) * hd ** -0.5
-        k = heads(self.k_lin(x))
-        v = heads(self.v_lin(x))
+        q = heads(q) * hd ** -0.5
+        k = heads(k)
+        v = heads(v)
         scores = q.float() @ k.float().transpose(-1, -2)
         keep = attention_mask[:, None, None, :].bool()
         scores = scores.masked_fill(~keep, NEG_INF)
@@ -78,13 +92,18 @@ class SelfAttention(nn.Module):
 
 
 class FFN(nn.Module):
+    tp_group = None
+
     def __init__(self, cfg: TextTowerConfig, device=None):
         super().__init__()
         self.lin1 = Linear(cfg.dim, cfg.hidden_dim, device=device)
         self.lin2 = Linear(cfg.hidden_dim, cfg.dim, device=device)
 
     def forward(self, x):
-        return self.lin2(gelu(self.lin1(x)))
+        if self.tp_group is None:
+            return self.lin2(gelu(self.lin1(x)))
+        h = column_linear(enter_columns(x, self.tp_group), self.lin1, x.dtype)
+        return self.lin2(gelu(h))
 
 
 class TransformerBlock(nn.Module):

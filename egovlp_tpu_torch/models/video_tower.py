@@ -43,18 +43,35 @@ passes them in, so no recompute draws.
 
 ``drop_rate`` and ``attn_drop_rate`` are not modelled: the JAX builder
 never reads them from a config.
+
+Mesh parallelism sets attributes on the modules: ``tp_group`` on a
+tensor-parallel ``VarAttention`` / ``Mlp`` (``core/tp.py``: its input
+enters through ``enter_columns`` and its column-parallel layer runs as
+``column_linear``; it holds its model rank's heads or hidden features),
+and ``sp`` on the tower, its blocks and their
+attentions under sequence parallelism (``core/sp.py``: the patch grid
+sharded over columns for time attention and over frames for space
+attention, one ``all_to_all`` at each phase change, the CLS row a split
+softmax over the model group).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from egovlp_tpu_torch.core import sp as seq
 from egovlp_tpu_torch.core.precision import Linear, gelu, linear
+from egovlp_tpu_torch.core.tp import (
+    column_linear,
+    copy_to_model,
+    enter_columns,
+)
 from egovlp_tpu_torch.kernels.cuda_attention import direct
 from egovlp_tpu_torch.kernels.divided_attention import (
     _cls_row_parts,
@@ -120,13 +137,18 @@ class VideoTowerConfig:
 
 
 class Mlp(nn.Module):
+    tp_group = None
+
     def __init__(self, dim: int, hidden_dim: int, device=None):
         super().__init__()
         self.fc1 = Linear(dim, hidden_dim, device=device)
         self.fc2 = Linear(hidden_dim, dim, device=device)
 
     def forward(self, x):
-        return self.fc2(gelu(self.fc1(x)))
+        if self.tp_group is None:
+            return self.fc2(gelu(self.fc1(x)))
+        h = column_linear(enter_columns(x, self.tp_group), self.fc1, x.dtype)
+        return self.fc2(gelu(h))
 
 
 def _projections(xc, xp, weight, bias):
@@ -137,25 +159,29 @@ def _projections(xc, xp, weight, bias):
 
 
 class QKVAttention(torch.autograd.Function):
-    """``apply(xc, xp, weight, bias, heads, axis, impl) -> (oc, op)``: the
+    """``apply(xc, xp, weight, bias, heads, axis, impl, cls_row) -> (oc,
+    op)``: the
     qkv projection and divided attention of ``VarAttention`` as one
     Function that saves only ``xc``, ``xp`` and the qkv weights (remat
     ``'attn_out'``).  Its backward recomputes q, k, v, then, on the
     ``'pallas'`` route, takes the patch queries' gradients from the
     attention kernel's backward (no forward launch) and the CLS row's from
     autograd of its plain torch; on the plain routes it recomputes the
-    attention under autograd."""
+    attention under autograd.  ``cls_row``: the CLS row's function (None:
+    ``_cls_row_parts``; the split softmax under sequence parallelism)."""
 
     @staticmethod
-    def forward(ctx, xc, xp, weight, bias, heads, axis, impl):
+    def forward(ctx, xc, xp, weight, bias, heads, axis, impl, cls_row):
         ctx.save_for_backward(xc, xp, weight, bias)
         ctx.heads, ctx.axis, ctx.impl = heads, axis, impl
+        ctx.cls_row = cls_row
         # an output that reaches no loss (the last block's patch part) gets
         # None, not zeros: its attention backward is skipped, as autograd
         # skips it without recompute
         ctx.set_materialize_grads(False)
         return divided_attention_parts(*_projections(xc, xp, weight, bias),
-                                       heads=heads, axis=axis, impl=impl)
+                                       heads=heads, axis=axis, impl=impl,
+                                       cls_row=cls_row)
 
     @staticmethod
     def backward(ctx, doc, dop):
@@ -174,13 +200,15 @@ class QKVAttention(torch.autograd.Function):
                                     scale)
                     outs += [qp, kp, vp, kc, vc]
                 if doc is not None:
-                    outs.append(_cls_row_parts(qc, kc, vc, kp, vp, ctx.heads,
-                                               scale))
+                    cls_row = ctx.cls_row or _cls_row_parts
+                    outs.append(cls_row(qc, kc, vc, kp, vp, ctx.heads,
+                                        scale))
                     douts.append(doc)
             else:
                 oc, op = divided_attention_parts(qc, kc, vc, qp, kp, vp,
                                                  heads=ctx.heads,
-                                                 axis=ctx.axis, impl=ctx.impl)
+                                                 axis=ctx.axis, impl=ctx.impl,
+                                                 cls_row=ctx.cls_row)
                 for o, d in ((oc, doc), (op, dop)):
                     if d is not None:
                         outs.append(o)
@@ -189,7 +217,7 @@ class QKVAttention(torch.autograd.Function):
             got = iter(torch.autograd.grad(outs, wanted, douts,
                                            allow_unused=True))
         return (*(next(got) if t is not None and t.requires_grad else None
-                  for t in leaves), None, None, None)
+                  for t in leaves), None, None, None, None)
 
 
 class VarAttention(nn.Module):
@@ -197,6 +225,9 @@ class VarAttention(nn.Module):
     applied to the ``(cls, grid)`` pair with shared weights.
     ``keep_attn_out``: the qkv projection and the attention run as
     ``QKVAttention`` (remat ``'attn_out'``)."""
+
+    tp_group = None
+    sp = None
 
     def __init__(self, dim: int, num_heads: int, axis: str, impl: str,
                  qkv_bias: bool = True, zero_init: bool = False,
@@ -211,14 +242,27 @@ class VarAttention(nn.Module):
         self.proj = Linear(dim, dim, device=device)
 
     def forward(self, xc, xp):
+        cls_row = (None if self.sp is None
+                   else functools.partial(seq.cls_row_parts, sp=self.sp))
         w, b = self.qkv.weight, self.qkv.bias
-        if self.keep_attn_out and torch.is_grad_enabled():
-            oc, op = QKVAttention.apply(xc, xp, w, b, self.num_heads,
-                                        self.axis, self.impl)
+        keep = self.keep_attn_out and torch.is_grad_enabled()
+        if self.tp_group is not None and not keep:
+            # the float32 partial input gradients (core/tp.py)
+            qkv = [column_linear(enter_columns(t, self.tp_group), self.qkv,
+                                 t.dtype).chunk(3, -1) for t in (xc, xp)]
+            parts = [t.contiguous() for third in qkv for t in third]
         else:
-            oc, op = divided_attention_parts(*_projections(xc, xp, w, b),
-                                             heads=self.num_heads,
-                                             axis=self.axis, impl=self.impl)
+            if self.tp_group is not None:  # 'attn_out' under TP
+                xc = copy_to_model(xc, self.tp_group)
+                xp = copy_to_model(xp, self.tp_group)
+            if keep:
+                oc, op = QKVAttention.apply(xc, xp, w, b, self.num_heads,
+                                            self.axis, self.impl, cls_row)
+                return self.proj(oc), self.proj(op)
+            parts = _projections(xc, xp, w, b)
+        oc, op = divided_attention_parts(*parts, heads=self.num_heads,
+                                         axis=self.axis, impl=self.impl,
+                                         cls_row=cls_row)
         return self.proj(oc), self.proj(op)
 
 
@@ -249,6 +293,8 @@ def _recompute(fn, *args):
 
 
 class SpaceTimeBlock(nn.Module):
+    sp = None
+
     def __init__(self, cfg: VideoTowerConfig, drop_path: float = 0.0,
                  device=None):
         super().__init__()
@@ -291,9 +337,14 @@ class SpaceTimeBlock(nn.Module):
     def _body(self, xc, xp, space_mask=None, mlp_mask=None):
         # each norm takes the CLS and patch parts in one launch (``pair``)
         tc, tp = self._attention(self.timeattn, *self.norm3.pair(xc, xp))
-        sc, sp = self._attention(self.attn, *self.norm1.pair(xc + tc, xp + tp))
+        tc, tp = xc + tc, xp + tp
+        if self.sp is not None:  # patch columns -> frames
+            tp = seq.time_to_space(tp, self.sp)
+        sc, sp = self._attention(self.attn, *self.norm1.pair(tc, tp))
         if space_mask is not None:
             sc, sp = drop_path(sc, sp, space_mask)
+        if self.sp is not None:  # frames -> patch columns
+            sp = seq.space_to_time(sp, self.sp)
         # residual from the ORIGINAL x, not from x + time (reference quirk)
         rc, rp = xc + sc, xp + sp
         nc, np_ = self.norm2.pair(rc, rp)
@@ -326,6 +377,8 @@ class PatchEmbed(nn.Module):
 
 class SpaceTimeTransformer(nn.Module):
     """Divided space-time attention transformer; returns the CLS feature."""
+
+    sp = None
 
     def __init__(self, cfg: VideoTowerConfig,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -362,6 +415,9 @@ class SpaceTimeTransformer(nn.Module):
         """video: ``[B, T, H, W, 3]`` channels-last, ``T <= num_frames``;
         ``generator`` draws the drop-path masks in training mode."""
         xc, xp = self.embed(video)
+        if self.sp is not None:
+            self.sp.check(xp.shape[1], xp.shape[2])
+            xp = self.sp.columns(xp)
         for blk in self.blocks:
             xc, xp = blk(xc, xp, generator)
         return self.norm(xc)[:, 0]

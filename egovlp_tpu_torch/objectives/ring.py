@@ -24,7 +24,8 @@ N times d L / d x_r, and ``DistributedDataParallel``'s mean gives d L /
 d theta, as ``core.collectives.all_gather_rows`` does on the gather path.
 
 Gloo moves host memory only: on a gloo group a CUDA shard goes through the
-host.
+host.  Under a mesh the ring is the data group's (each model index has its
+own ring); ``_shift`` is the one hop helper, which ``core/pp.py`` reuses.
 """
 
 from __future__ import annotations
@@ -33,18 +34,24 @@ import torch
 import torch.distributed as dist
 
 from egovlp_tpu_torch.core.collectives import all_gather_rows, psum_scalar
-from egovlp_tpu_torch.core.dist import process_shard
+from egovlp_tpu_torch.core.mesh import data_global_rank, data_group, data_shard
 
 
-def _shift(x: torch.Tensor) -> torch.Tensor:
-    """``x`` sent to rank + 1; what rank - 1 sent, received."""
-    rank, world = process_shard()
-    host = x.is_cuda and dist.get_backend() == "gloo"
+def _shift(x: torch.Tensor, group=None, rank: int = 0, peers=None,
+           step: int = 1) -> torch.Tensor:
+    """``x`` sent ``step`` ranks on around the ring; what the rank
+    ``step`` back sent, received.  The ring is the data group's unless
+    ``group`` is given, with this rank's index ``rank`` on it and
+    ``peers`` (index -> global rank)."""
+    if group is None:
+        group, (rank, _) = data_group(), data_shard()
+        peers = data_global_rank
+    host = x.is_cuda and dist.get_backend(group) == "gloo"
     send = x.detach().cpu() if host else x.detach().contiguous()
     recv = torch.empty_like(send)
     for req in dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, send, (rank + 1) % world),
-            dist.P2POp(dist.irecv, recv, (rank - 1) % world)]):
+            dist.P2POp(dist.isend, send, peers(rank + step), group),
+            dist.P2POp(dist.irecv, recv, peers(rank - step), group)]):
         req.wait()
     return recv.to(x.device) if host else recv
 
@@ -52,7 +59,7 @@ def _shift(x: torch.Tensor) -> torch.Tensor:
 class _RingSimilarity(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, rows):
-        rank, world = process_shard()
+        rank, world = data_shard()
         out = a.new_empty(a.shape[0], rows.numel())
         blocks, lb = [], b.contiguous()
         for step in range(world):
@@ -66,7 +73,7 @@ class _RingSimilarity(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         a, rows, *blocks = ctx.saved_tensors
-        rank, world = process_shard()
+        rank, world = data_shard()
         da = sum(grad[:, rows[(rank - s) % world]] @ blk
                  for s, blk in enumerate(blocks))
         # rank r adds its share of owner (r - k - 1)'s block gradient at
@@ -122,7 +129,7 @@ def egoclip_ring_loss(t, v, noun_vec, verb_vec, rows, *, loss_type: str,
     batch.  Returns the global loss, equal to ``egonce(sim_matrix(t, v),
     ...)`` / ``info_nce`` on the gathered batch; its gradient is that of
     this rank's rows' share (see the module notes)."""
-    rank, _ = process_shard()
+    rank, _ = data_shard()
     mine = rows[rank]
     tn, vn = _normalize(t), _normalize(v)
     rows_t2v = ring_similarity(tn, vn, rows)
@@ -144,5 +151,5 @@ def egoclip_ring_loss(t, v, noun_vec, verb_vec, rows, *, loss_type: str,
         d1 = _row_direction_infonce(rows_t2v, mine, temperature)
         d2 = _row_direction_infonce(rows_v2t, mine, temperature)
     local = -(d1 + d2)
-    total = psum_scalar(local.detach()) / process_shard()[1]
+    total = psum_scalar(local.detach()) / data_shard()[1]
     return local + (total - local.detach())

@@ -31,9 +31,18 @@ Counterpart of ``egovlp_tpu/train/recipes.py`` for the ``egoclip``,
   and validates the unwrapped model on its shard of the val loader.  The
   config's batch size is the process's (the reference's per-GPU
   convention): the global batch is world size times it, and an epoch is
-  the per-rank loader's length.  Tensor, sequence and ZeRO parallelism
-  (``mesh.model`` > 1, ``zero``, ``dcn_data`` > 1) raise (``ROADMAP.md``,
-  Queue A, A13); ``mesh.sequence_parallel`` at ``model`` 1
+  the per-rank loader's length.  The config's ``mesh`` (``data``,
+  ``model``, ``dcn_data``, ``sequence_parallel``, ``zero``) lays the ranks
+  out as a (data, model) mesh (``core/mesh.py``, :148-257): a data
+  replica of ``model`` ranks takes ``batch_size * model`` rows, the same
+  on each of its ranks; with ``model`` > 1 the model is tensor-parallel
+  over them (``core/tp.py``), its video tower sequence-parallel instead
+  when ``sequence_parallel`` is set (``core/sp.py``), ZeRO ``zero`` (1 or
+  3) splits the optimizer state over the data group (``core/zero.py``,
+  applied after any resume, :390-397), and the optimizer reduces the
+  gradients itself in place of the DDP wrapper (``apply_mesh``).  At
+  ``model`` 1 without ZeRO nothing changes: DDP over the world.
+  ``mesh.sequence_parallel`` at ``model`` 1
   logs JAX's warning and trains (:158-163); ``nlq`` / ``mq`` train
   nothing and raise, naming ``cli.extract``.  Rank 0 writes the logged
   losses and every validation's metrics to the run's ``tf`` directory
@@ -58,6 +67,8 @@ from egovlp_tpu_torch.core.dist import (
     local_rank,
     process_shard,
 )
+from egovlp_tpu_torch.core.mesh import MeshSpec, create_mesh
+from egovlp_tpu_torch.core.zero import apply_mesh
 from egovlp_tpu_torch.evals.charades import (
     evaluate_charades,
     load_charades_classes,
@@ -188,10 +199,19 @@ def classes_file(config, dl_args: Dict[str, Any]) -> str:
                       f"{meta}/Charades_v1_classes.txt")
 
 
+def mesh_spec(config) -> MeshSpec:
+    """The config's ``mesh`` as a ``MeshSpec``."""
+    mesh = config.get("mesh") or {}
+    return MeshSpec(data=int(mesh.get("data", -1)),
+                    model=int(mesh.get("model", 1)),
+                    dcn_data=int(mesh.get("dcn_data", 1)))
+
+
 def check_ported(config) -> None:
-    """Raise ``NotImplementedError`` on a task or a parallelism key the
-    port does not run yet, and ``ValueError`` on a data-parallel size
-    (``mesh.data``, ``n_devices``) other than the world size."""
+    """Raise ``NotImplementedError`` on a task or a key the port does not
+    run, and ``ValueError`` on a mesh that does not cover the world
+    (``data * model * dcn_data``) or an ``n_devices`` other than the world
+    size."""
     task = infer_task(config)
     if task in ("nlq", "mq"):
         raise NotImplementedError(
@@ -199,20 +219,24 @@ def check_ported(config) -> None:
             "`python -m egovlp_tpu_torch.cli.extract`")
     if task not in PORTED_TASKS:
         raise NotImplementedError(f"unknown task {task!r}")
-    mesh = config.get("mesh") or {}
-    if (int(mesh.get("model", 1)) > 1 or mesh.get("zero")
-            or int(mesh.get("dcn_data", 1)) > 1):
-        raise NotImplementedError(
-            f"mesh {mesh}: tensor, sequence and ZeRO parallelism are not "
-            "ported (ROADMAP.md, Queue A, A13)")
     world = process_shard()[1]
-    for key, n in (("mesh.data", int(mesh.get("data", -1))),
-                   ("n_devices", int(config.get("n_devices") or -1))):
-        if n != -1 and n != world:
-            raise ValueError(
-                f"{key}={n} but the world size is {world}: the port runs "
-                "one process per GPU (torchrun --nproc_per_node=N ... "
-                "--multihost)")
+    spec = mesh_spec(config)
+    if spec.data > 0 and spec.data * spec.model * spec.dcn_data != world:
+        raise ValueError(
+            f"mesh.data={spec.data} but the world size is {world}: mesh "
+            f"{spec.dcn_data}x{spec.data}x{spec.model} (dcn x data x model) "
+            f"does not cover {world} devices; the port runs one process "
+            "per GPU (torchrun --nproc_per_node=N ... --multihost)")
+    spec.resolve(world)
+    n = int(config.get("n_devices") or -1)
+    if n != -1 and n != world:
+        raise ValueError(
+            f"n_devices={n} but the world size is {world}: the port runs "
+            "one process per GPU (torchrun --nproc_per_node=N ... "
+            "--multihost)")
+    zero = (config.get("mesh") or {}).get("zero") or 0
+    if zero and int(zero) not in (1, 3):
+        raise ValueError(f"zero stage must be 1 or 3, got {zero!r}")
     drop_path = float(config.get_path(
         "arch.args.video_params.drop_path_rate", 0.0) or 0.0)
     if world > 1 and drop_path > 0:
@@ -260,15 +284,24 @@ def run_task(config, resume: Optional[str] = None,
     config = config if isinstance(config, Config) else Config(config)
     logger = setup_logging()
     check_ported(config)
-    if (config.get("mesh") or {}).get("sequence_parallel"):
+    mesh_cfg = config.get("mesh") or {}
+    if mesh_cfg.get("sequence_parallel") and mesh_spec(config).model <= 1:
         # as JAX recipes.py:158-163: a mesh without a model axis runs on
         logger.warning(
             "mesh.sequence_parallel is set but the mesh has no model axis "
             "(model=1) — sequence parallelism is OFF; set mesh.model >= 2")
     device = resolve_device(device)
+    mesh = create_mesh(mesh_spec(config))
+    with mesh:
+        return _run_task(config, resume, device, mesh, logger)
+
+
+def _run_task(config, resume, device, mesh, logger):
     task = infer_task(config)
     rank, world = process_shard()
-    logger.info("task: %s on %s (rank %d of %d)", task, device, rank, world)
+    logger.info("task: %s on %s (rank %d of %d; mesh data %d x model %d)",
+                task, device, rank, world, mesh.data.size, mesh.model.size)
+    mesh_cfg = config.get("mesh") or {}
 
     arch = config["arch"]
     model, _ = build.build_model(arch, device)
@@ -293,9 +326,12 @@ def run_task(config, resume: Optional[str] = None,
     max_samples = trainer_cfg.get("max_samples_per_epoch")
     input_res = int(dl_args.get("video_params", {}).get("input_res", 224))
     all_args = _all_dl_args(config)
-    train_loaders = [build.build_loader(dict(a), "train", tokenizer,
-                                        max_samples_per_epoch=max_samples)
-                     for a in all_args]
+    # batch_size is per chip: a data replica of `model` ranks loads
+    # batch_size * model rows, the same on each of its ranks (:204-221)
+    train_loaders = [build.build_loader(
+        dict(a), "train", tokenizer,
+        batch_size=int(a.get("batch_size", 16)) * mesh.model.size,
+        max_samples_per_epoch=max_samples) for a in all_args]
     steps_per_epoch = max(min(len(l) for l in train_loaders), 1)
 
     opt_args = config.get("optimizer", {}).get("args", {})
@@ -409,10 +445,15 @@ def run_task(config, resume: Optional[str] = None,
         payload = trainer.resume(model, optimizer, resume)
         logger.info("resumed from %s (epoch %d) at epoch %d", resume,
                     payload["epoch"], trainer.cfg.start_epoch)
+    # the mesh's sharding, after the resume so that any checkpoint
+    # re-shards onto this mesh (:390-397)
+    sharded = apply_mesh(
+        model, optimizer, mesh,
+        sequence_parallel=bool(mesh_cfg.get("sequence_parallel")),
+        zero=int(mesh_cfg.get("zero") or 0), logger=logger)
     try:
-        trainer.train(data_parallel(model, device,
-                                    video_only=task in VIDEO_ONLY_TASKS),
-                      optimizer)
+        trainer.train(model if sharded is not None else data_parallel(
+            model, device, video_only=task in VIDEO_ONLY_TASKS), optimizer)
     finally:
         for l in train_loaders + val_loaders:
             l.close()

@@ -29,10 +29,16 @@ no counterpart: the model and the optimizer are the state.
   ``(g / n) * max_grad_norm`` when ``n >= max_grad_norm`` and stays as it
   is otherwise (no host sync: the choice is a ``torch.where``).  As in
   the JAX package, ``run_task`` reads no config key for it.
+
+  Under a mesh (``core/zero.apply_mesh``) ``mesh_update`` is set: the step
+  first reduces the gradients over the mesh, updates this rank's ZeRO
+  slices and then gathers or releases them; the clip's norm is the
+  global one.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -81,6 +87,7 @@ class AdamW(torch.optim.Optimizer):
                                       mu_dtype=mu_dtype, count=0))
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
+        self.mesh_update = None  # core.zero.MeshUpdate
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -88,18 +95,30 @@ class AdamW(torch.optim.Optimizer):
             raise ValueError("AdamW.step takes no closure")
         params = [[p for p in group["params"] if p.grad is not None]
                   for group in self.param_groups]
-        grads = [[p.grad.float() for p in ps] for ps in params]
+        mesh = self.mesh_update
+        if mesh is None:
+            grads = [[p.grad.float() for p in ps] for ps in params]
+            targets = params
+        else:
+            grads, targets = mesh.gradients(params)
         if self.max_grad_norm:
-            grads = clip_by_global_norm(grads, self.max_grad_norm)
-        for group, ps, gs in zip(self.param_groups, params, grads):
+            grads = clip_by_global_norm(
+                grads, self.max_grad_norm,
+                None if mesh is None else functools.partial(
+                    mesh.norm_sq, params=[p for ps in params for p in ps]))
+        for group, ps, ts, gs in zip(self.param_groups, params, targets,
+                                     grads):
             if ps:
-                self._update(group, ps, gs)
+                self._update(group, ts, gs, keys=ps)
             group["count"] += 1
+        if mesh is not None:
+            mesh.finish()
 
-    def _update(self, group, params, grads):
+    def _update(self, group, params, grads, keys=None):
         """One step over ``params`` with their float32 ``grads``, in
         multi-tensor (``_foreach``) ops: a few launches per step instead of
-        a dozen per parameter."""
+        a dozen per parameter.  ``keys``: the parameters whose state the
+        moments are (``params`` may be views of their ZeRO slices)."""
         count = group["count"]
         lr = _f32(self.schedule(count))
         b1, b2, eps = B1, B2, EPS
@@ -108,13 +127,14 @@ class AdamW(torch.optim.Optimizer):
         bc1 = _f32(np.float32(1) - np.float32(b1) ** t)
         bc2 = _f32(np.float32(1) - np.float32(b2) ** t)
         mu_dtype = getattr(torch, group["mu_dtype"] or "float32")
-        for p in params:
-            st = self.state[p]
+        keys = params if keys is None else keys
+        for k, p in zip(keys, params):
+            st = self.state[k]
             if not st:
                 st["mu"] = torch.zeros_like(p, dtype=mu_dtype)
                 st["nu"] = torch.zeros_like(p, dtype=torch.float32)
-        mus = [self.state[p]["mu"] for p in params]
-        nus = [self.state[p]["nu"] for p in params]
+        mus = [self.state[k]["mu"] for k in keys]
+        nus = [self.state[k]["nu"] for k in keys]
         m = [mu.float() for mu in mus]
         if group["rule"] == "optax":
             # optax's update_moment multiplies the moment by a weakly typed
@@ -151,14 +171,17 @@ class AdamW(torch.optim.Optimizer):
         torch._foreach_copy_(mus, m)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm_sq=None):
     """``optax.clip_by_global_norm`` on lists of float32 gradients: all
     scaled by ``max_norm / n`` (as ``(g / n) * max_norm``) when their
-    global norm ``n`` is at least ``max_norm``, else unchanged."""
+    global norm ``n`` is at least ``max_norm``, else unchanged.
+    ``norm_sq``: each tensor's squared norm -> the global squared norm
+    (a mesh's shards; default: their sum)."""
     flat = [g for gs in grads for g in gs]
     if not flat:
         return grads
-    norm = torch.stack(torch._foreach_norm(flat)).norm()
+    norms = torch.stack(torch._foreach_norm(flat))
+    norm = norms.norm() if norm_sq is None else norm_sq(norms ** 2).sqrt()
     keep = norm < max_norm
     return [[torch.where(keep, g, (g / norm) * max_norm) for g in gs]
             for gs in grads]

@@ -43,7 +43,10 @@ step does.  Ego4D OSCC and PNR (``make_oscc_train_step`` /
 class head (2 logits; 16, one a sampled frame, masked by the
 state-change flag); they draw the global batch's crop boxes too and
 all-gather the logits, targets and mask, so the loss is the JAX step's
-global-batch loss at any world size.  The evaluation steps (:303-328)
+global-batch loss at any world size.  Under a mesh (``core/mesh.py``) the
+ranks of the global batch are the data group's: every model rank of a
+data replica takes the same rows and crop boxes, and the gathers and the
+ring run over the data group.  The evaluation steps (:303-328)
 embed collated batches with the eval transform: text and video, video
 alone, text alone.
 """
@@ -56,7 +59,8 @@ import numpy as np
 import torch
 
 from egovlp_tpu_torch.core.collectives import all_gather_rows
-from egovlp_tpu_torch.core.dist import in_process_group, process_shard
+from egovlp_tpu_torch.core.dist import in_process_group
+from egovlp_tpu_torch.core.mesh import data_shard
 from egovlp_tpu_torch.data.transforms import (
     eval_resize,
     resized_crop_flip,
@@ -123,7 +127,7 @@ def make_egoclip_train_step(loss_type: str = "EgoNCE", input_res: int = 224,
 
     def step(model, optimizer, batch: Dict[str, torch.Tensor],
              generator: torch.Generator) -> torch.Tensor:
-        rank, world = process_shard()
+        rank, world = data_shard()
         parts = {k: batch[k] for k, _ in _NEG_KEYS}
         negatives = "frames_neg" in batch
         if negatives:
@@ -188,7 +192,7 @@ def _train_video(model, frames: torch.Tensor, generator: torch.Generator,
     """The train transform of a batch without negatives, its crop boxes
     and flips drawn for the global batch and this rank's rows kept; puts
     ``model`` in training mode."""
-    rank, world = process_shard()
+    rank, world = data_shard()
     b = frames.shape[0]
     boxes, flips = sample_crop_boxes(generator, world * b, frames.shape[2])
     if world > 1:

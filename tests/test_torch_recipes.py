@@ -354,24 +354,44 @@ def test_cli_train_eval_only_preset_writes_no_checkpoint(tiny_run,
 
 @pytest.mark.parametrize("key,value,match", [
     ("task", "nlq", "cli.extract"), ("task", "mq", "cli.extract"),
-    ("mesh", {"model": 2}, "A13"),
-    ("mesh", {"model": 2, "sequence_parallel": True}, "A13"),
-    ("mesh", {"zero": 1}, "A13"), ("mesh", {"data": 2}, "world size is 1"),
+    ("mesh", {"model": 2}, "mesh 1x0x2"),
+    ("mesh", {"model": 2, "sequence_parallel": True}, "mesh 1x0x2"),
+    ("mesh", {"zero": 1}, "trains"), ("mesh", {"data": 2}, "world size is 1"),
     ("n_devices", 2, "world size is 1")])
-def test_unported_keys_raise(key, value, match, tmp_path):
-    """Unported mesh axes raise NotImplementedError naming ROADMAP.md, and
-    the tasks that train nothing (nlq, mq) one naming ``cli.extract``; a
-    data-parallel size other than the world size (here 1: one process)
-    raises ValueError naming both numbers."""
+def test_unported_keys_raise(key, value, match, tmp_path, request,
+                             monkeypatch):
+    """The tasks that train nothing (nlq, mq) raise NotImplementedError
+    naming ``cli.extract``; a mesh that does not cover the world (here 1:
+    one process; ``model`` 2 with or without sequence parallelism) raises
+    ValueError naming the mesh and the world (JAX's ``MeshSpec.resolve``
+    text), as does a data-parallel size other than the world size; ZeRO 1
+    at world 1 trains, with nothing sharded, the plain run's first
+    epoch."""
+    if match == "trains":
+        run = request.getfixturevalue("tiny_run")
+        logs = []
+        record_port(monkeypatch, logs)
+        cfg = Config(tiny_config(run["root"], run["vocab"], run["ckpt"],
+                                 str(tmp_path), epochs=1))
+        cfg.override(key, value)
+        model, opt = recipes.run_task(cfg, device="cpu")
+        assert not opt.mesh_update.sharded()
+        assert logs[0][:2] == run["port_logs"][0][:2] == ("train", 1)
+        assert logs[0][2] == run["port_logs"][0][2]
+        assert logs[1] == run["port_logs"][1]
+        return
     cfg = Config(tiny_config("unused", "unused", "", str(tmp_path)))
     cfg.override(key, value)
     if match.startswith("world"):
         with pytest.raises(ValueError, match=f"=2 but the {match}"):
             recipes.run_task(cfg, device="cpu")
+    elif match.startswith("mesh"):
+        with pytest.raises(ValueError, match=rf"{match} \(dcn x data x "
+                                             r"model\) does not cover 1 "
+                                             "devices"):
+            recipes.run_task(cfg, device="cpu")
     else:
-        with pytest.raises(NotImplementedError,
-                           match=match if match == "cli.extract"
-                           else f"ROADMAP.md.*{match}"):
+        with pytest.raises(NotImplementedError, match=match):
             recipes.run_task(cfg, device="cpu")
     assert not (tmp_path / "models").exists()
 

@@ -15,7 +15,8 @@
   as ``tests/test_torch_recipes.py``), equal EgoMCQ accuracies, and
   both warn that sequence parallelism is off.  JAX's crop boxes are
   patched into the port as in that file.
-* ``mesh.model`` 2, the config as shipped, raises naming A13.
+* ``mesh.model`` 2, the config as shipped, raises in one process, naming
+  the mesh and the world (A13 runs it on two ranks).
 """
 
 import copy
@@ -220,8 +221,13 @@ def test_sequence_parallel_at_model_1_warns_and_trains(vitl_runs):
 
 
 def test_vitl_as_shipped_raises_naming_a13(tmp_path):
+    """The shipped config's mesh (model 2, sequence parallelism; A13) needs
+    two ranks: in one process it raises naming the mesh and the world, as
+    JAX's ``MeshSpec.resolve`` does (``tests/test_torch_tp_sp.py`` runs it
+    on two)."""
     cfg = vitl_config(**{"trainer.save_dir": str(tmp_path)})
-    assert cfg["mesh"]["model"] == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*A13"):
+    assert cfg["mesh"]["model"] == 2 and cfg["mesh"]["sequence_parallel"]
+    with pytest.raises(ValueError, match=r"mesh 1x0x2 \(dcn x data x "
+                                         r"model\) does not cover 1 devices"):
         recipes.run_task(cfg, device="cpu")
     assert not (tmp_path / "models").exists()

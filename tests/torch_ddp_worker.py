@@ -30,7 +30,20 @@ only torch and the port (no jax), joins the process group with
   of this rank's ``t`` and ``v`` rows to ``DIR/rank{r}.pt``;
 * ``eval``: ``gather_eval`` / ``gather_arrays`` / ``gather_objects`` of
   this rank's rows of ``DIR/eval.pkl`` (``{'rows': [rank 0's, rank 1's],
-  ...}``) and the EgoMCQ accuracies of the result, to ``DIR/rank{r}.pkl``.
+  ...}``) and the EgoMCQ accuracies of the result, to ``DIR/rank{r}.pkl``;
+* ``mesh``: the EgoClip runs ``DIR/mesh.json`` lists, each on its own
+  (data, model) mesh (``core/mesh.py``) with sequence parallelism and ZeRO
+  as it says, from ``weights.pt`` (or, with ``resume``, the checkpoint an
+  earlier run wrote) on ``batch.pt`` (the global batch and its boxes),
+  this rank's data rows: ``steps`` steps; records the losses, every
+  parameter's reduced gradient of the first step gathered whole, the full
+  state after the last step (``core.zero.full_state``), the local shapes
+  of the parameters and moments, and, with ``save``, rank 0 writes the
+  checkpoint; all to ``DIR/rank{r}.pt``;
+* ``pipeline``: ``core.pp.video_tower_pp_apply`` of the tower in
+  ``DIR/pp.pt`` over a stage group of ``stages`` ranks (and a data axis
+  when the world is larger), forward and the gradients of a fixed
+  cotangent, to ``DIR/rank{r}.pt``.
 """
 
 import json
@@ -176,11 +189,135 @@ def evaluate(rank, world, out):
         pickle.dump(res, f)
 
 
+def _tiny_model(spec):
+    from egovlp_tpu_torch.models import (
+        DualEncoder,
+        DualEncoderConfig,
+        TextTowerConfig,
+        VideoTowerConfig,
+    )
+
+    return DualEncoder(DualEncoderConfig(
+        video=VideoTowerConfig(**spec["video"]),
+        text=TextTowerConfig(**spec["text"]),
+        projection_dim=spec.get("proj", 8)))
+
+
+def mesh(rank, world, out):
+    from egovlp_tpu_torch.core.mesh import MeshSpec, create_mesh, shard_batch
+    from egovlp_tpu_torch.core.zero import apply_mesh, full_state
+    from egovlp_tpu_torch.io.checkpoints import CheckpointManager
+    from egovlp_tpu_torch.train import steps
+    from egovlp_tpu_torch.train.recipes import data_parallel
+    from egovlp_tpu_torch.train.state import make_optimizer
+
+    spec = json.loads((out / "mesh.json").read_text())
+    data = torch.load(out / "batch.pt")
+    boxes, flips = data["boxes"], data["flips"]
+
+    def crop_boxes(gen, n, src):  # the global batch's boxes
+        assert n == len(boxes), (n, len(boxes))
+        return boxes, flips
+
+    steps.sample_crop_boxes = crop_boxes
+    results = {}
+    for run in spec["runs"]:
+        model = _tiny_model(spec)
+        opt, _ = make_optimizer(model, **spec["sched"])
+        if run.get("resume"):
+            CheckpointManager(str(out / run["resume"])).restore(model, opt)
+        else:
+            model.load_state_dict(torch.load(out / "weights.pt"))
+        grid = create_mesh(MeshSpec(**run["mesh"]))
+        with grid:
+            update = apply_mesh(model, opt, grid,
+                                sequence_parallel=run.get("sp", False),
+                                zero=run.get("zero", 0),
+                                min_size=run.get("min_size", 16384))
+            first = {}
+            if update is None:
+                trained = data_parallel(model, torch.device("cpu"))
+                step_opt = opt.step
+
+                def recorded():
+                    if not first:
+                        first.update({k: p.grad.clone() for k, p in
+                                      model.named_parameters()})
+                    step_opt()
+
+                opt.step = recorded
+            else:
+                trained = model
+                reduce = update.gradients
+
+                def recorded(params):
+                    grads, targets = reduce(params)
+                    if not first:
+                        names = {id(p): k for k, p in
+                                 model.named_parameters()}
+                        for ps, gs in zip(params, grads):
+                            for p, g in zip(ps, gs):
+                                first[names[id(p)]] = update.full(g, p, True)
+                    return grads, targets
+
+                update.gradients = recorded
+            step_fn = steps.make_egoclip_train_step(
+                input_res=spec["res"], global_sim=run.get("global_sim",
+                                                          "gather"))
+            local = shard_batch(data["batch"], grid)
+            losses = [step_fn(trained, opt, local, torch.Generator()).item()
+                      for _ in range(run.get("steps", 1))]
+            sd, osd = full_state(model, opt)
+            if run.get("save"):
+                CheckpointManager(str(out / run["save"])).save_epoch(
+                    1, model, opt, 0.0)
+            results[run["name"]] = {
+                "losses": losses, "grads": first, "params": sd,
+                "moments": osd["state"],
+                "local": {k: tuple(p.shape) for k, p in
+                          model.named_parameters()},
+                "local_moments": {k: {m: tuple(v.shape) for m, v in
+                                      opt.state[p].items()}
+                                  for k, p in model.named_parameters()
+                                  if p in opt.state}}
+    torch.save(results, out / f"rank{rank}.pt")
+
+
+def pipeline(rank, world, out):
+    import torch.distributed as dist
+
+    from egovlp_tpu_torch.core.pp import pp_rows, video_tower_pp_apply
+    from egovlp_tpu_torch.models.video_tower import (
+        SpaceTimeTransformer,
+        VideoTowerConfig,
+    )
+
+    data = torch.load(out / "pp.pt")
+    tower = SpaceTimeTransformer(VideoTowerConfig(**data["video"]))
+    tower.load_state_dict(data["weights"])
+    stages = data["stages"]
+    groups = [dist.new_group(list(range(d * stages, (d + 1) * stages)))
+              for d in range(world // stages)]
+    data_groups = [dist.new_group(list(range(s, world, stages)))
+                   for s in range(stages)] if world > stages else None
+    d, s = divmod(rank, stages)
+    out_v = video_tower_pp_apply(
+        tower, data["video_in"], n_stages=stages, n_micro=data["n_micro"],
+        stage_group=groups[d],
+        data_group=data_groups[s] if data_groups else None)
+    rows = pp_rows(len(data["video_in"]), data["n_micro"],
+                   rank // stages, world // stages)
+    (out_v * data["cotangent"][rows]).sum().backward()
+    torch.save({"out": out_v.detach(),
+                "grads": {k: p.grad for k, p in tower.named_parameters()}},
+               out / f"rank{rank}.pt")
+
+
 if __name__ == "__main__":
     mode, out = sys.argv[1], Path(sys.argv[2])
     torch.set_num_threads(1)
     rank, world = init_distributed("cpu")
-    {"gather": gather, "step": step, "ring": ring,
-     "eval": evaluate}[mode](rank, world, out)
+    {"gather": gather, "step": step, "ring": ring, "eval": evaluate,
+     "mesh": mesh, "pipeline": pipeline}[mode](rank, world, out)
     torch.distributed.destroy_process_group()
     print(f"{mode.upper()}_OK rank {rank} of {world}", flush=True)
