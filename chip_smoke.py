@@ -320,6 +320,15 @@ Phases, each of which passes or raises (any failure exits non-zero):
    and the loss within 1e-5.  Prints, a run and a rank: step time, peak
    memory, the all-to-all / all-reduce / all-gather / reduce-scatter calls
    and MiB a step, the parameters + AdamW state held against the whole.
+   The sequence-parallel run stores the video tower's tensor-parallel
+   leaves and their moments split over the model group, gathered whole at
+   use (``core/sp.py``): its parameters + AdamW state a rank must be the
+   tensor-parallel run's within ``MESH_STATE_GIB_TOL`` (0.05 GiB).  A
+   float32 drop-path run (depth 2, 2 text layers, ``drop_path_rate`` 0.5,
+   data 2 through the DDP wrapper, 8 + 8 clips a rank) must give the
+   one-process step on the concatenated batch to the float32 limits
+   above; its masks must drop some samples and keep others, the ranks'
+   together dropping and keeping what one process's do.
    (d), in the same ranks: ViT-B's
    video tower (phase 5's architecture) with its 12 blocks pipelined
    (``core/pp.py``) at 2 stages x ``n_micro`` 4 on 8 clips, the output and
@@ -3772,6 +3781,15 @@ MESH_SPLIT_FACTOR = 2.0
 # phase_mesh), and the float32 limits of every run (tests/test_torch_tp_sp.py)
 MESH_MODEL_RUNS = ("sp", "tp")
 MESH_F32_LOSS, MESH_F32_GRAD = 1e-5, 1e-4
+# the float32 drop-path run (depth 2, 2 text layers, the small batch):
+# data 2 without ZeRO (the DDP wrapper), each rank drawing the masks of
+# the global batch, against one process on the concatenated batch
+MESH_DROP_RUN = ("drop", {"data": 2}, False, 0, MESH_CLIPS // 2)
+MESH_DROP_RATE = 0.5
+# the sequence-parallel run's parameters + AdamW state a rank: the video
+# tower stored split as tensor parallelism stores it, so the tensor-parallel
+# run's, within this many GiB
+MESH_STATE_GIB_TOL = 0.05
 PP_COS = 0.999  # (d): the pipelined tower against the sequential one
 PP_STAGES, PP_MICRO, PP_CLIPS = 2, 4, 8
 
@@ -3786,12 +3804,15 @@ def qkv_names(names) -> list:
 
 
 def mesh_arch(precision: str = "bf16", impl: str = "auto",
-              depth: int = 24, text_layers: int = 6) -> dict:
+              depth: int = 24, text_layers: int = 6,
+              drop_path_rate: float = 0.0) -> dict:
     """Phase 13's ViT-L architecture: the config's 'block' recompute, random
-    time attention, ``precision``, ``attention_impl`` and depths."""
+    time attention, ``precision``, ``attention_impl``, depths and
+    ``drop_path_rate``."""
     arch = copy.deepcopy(vitl_arch(True))
     arch["args"]["precision"] = precision
-    arch["args"]["video_params"].update(attention_impl=impl, depth=depth)
+    arch["args"]["video_params"].update(attention_impl=impl, depth=depth,
+                                        drop_path_rate=drop_path_rate)
     arch["args"]["text_params"]["n_layers"] = text_layers
     return arch
 
@@ -3846,11 +3867,35 @@ def mesh_initial(arch: dict, device) -> dict:
     return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
 
 
+class MaskCount:
+    """Counts the samples the video tower's drop-path masks drop and keep,
+    while it is entered (``video_tower.drop_path`` wrapped)."""
+
+    def __enter__(self) -> "MaskCount":
+        from egovlp_tpu_torch.models import video_tower
+
+        self.dropped = self.kept = 0
+        self.module, self.drop_path = video_tower, video_tower.drop_path
+
+        def counted(xc, xp, mask):
+            zero = int((mask == 0).sum())
+            self.dropped += zero
+            self.kept += mask.numel() - zero
+            return self.drop_path(xc, xp, mask)
+
+        video_tower.drop_path = counted
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.module.drop_path = self.drop_path
+
+
 def mesh_reference(arch: dict, batches: list, initial: dict,
                    split: bool = False) -> dict:
     """One process's steps on the global ``batches`` from ``initial``, its
     layers split as ``split_layers`` splits them when ``split``: the
-    losses, the first step's gradient and the update after the last."""
+    losses, the first step's gradient, the update after the last and the
+    samples its drop-path masks dropped and kept."""
     import torch
 
     from egovlp_tpu_torch import build
@@ -3873,20 +3918,22 @@ def mesh_reference(arch: dict, batches: list, initial: dict,
 
     opt.step = recorded
     step = make_egoclip_train_step()
-    losses = [step(model, opt, to_device(b, DEVICE),
-                   step_generator(DEVICE, 0, 1, i)).item()
-              for i, b in enumerate(batches)]
+    with MaskCount() as masks:
+        losses = [step(model, opt, to_device(b, DEVICE),
+                       step_generator(DEVICE, 0, 1, i)).item()
+                  for i, b in enumerate(batches)]
     upd = {k: v.detach().cpu() - initial[k]
            for k, v in model.state_dict().items()}
     del model, opt
     torch.cuda.empty_cache()
-    return {"losses": losses, "grads": first, "update": upd}
+    return {"losses": losses, "grads": first, "update": upd,
+            "masks": [masks.dropped, masks.kept]}
 
 
 def compact(ref: dict, dtype) -> dict:
     """``ref`` with its tensors in ``dtype`` (bf16 halves the bytes rank 0
     takes in; the cosines it serves move by ~1e-6)."""
-    return {"losses": ref["losses"],
+    return {"losses": ref["losses"], "masks": ref["masks"],
             **{k: {n: t.to(dtype) for n, t in ref[k].items()}
                for k in ("grads", "update")}}
 
@@ -3982,6 +4029,13 @@ def phase_mesh(ca, smi: str, root: Path) -> dict:
         f32_arch = mesh_arch("fp32", depth=2, text_layers=2)
         refs["f32_"] = mesh_reference(f32_arch, small,
                                       mesh_initial(f32_arch, DEVICE))
+        # and with drop-path, whose masks data 2 must draw for the global
+        # batch (the same weights: drop-path has none)
+        refs["drop_"] = mesh_reference(
+            mesh_arch("fp32", depth=2, text_layers=2,
+                      drop_path_rate=MESH_DROP_RATE), small,
+            mesh_initial(f32_arch, DEVICE))
+        drop_ref = refs["drop_"]["masks"]
         buf = io.BytesIO()
         torch.save(refs, buf)
         del initial, refs
@@ -4077,6 +4131,34 @@ def phase_mesh(ca, smi: str, root: Path) -> dict:
                 # but the last one's patch path in the backward
                 if a2a != 2 * 24 * 3 - 1:
                     bad.append(f"mesh {name}: {a2a} all_to_all a step")
+        drop = res[0]["drop"]["drop"]
+        masks = [x["drop"]["drop"]["masks"] for x in res]
+        print(f"mesh drop-path float32 (depth 2, 2 text layers, "
+              f"drop_path_rate {MESH_DROP_RATE}, data 2 over gloo, "
+              f"{MESH_CLIPS // 2} + {MESH_CLIPS // 2} clips a rank) vs one "
+              f"process on the concatenated batch: loss rel diff "
+              f"{drop['rel_loss']:.2e} (tol {MESH_F32_LOSS:.0e}), every "
+              f"parameter's gradient within relative L2 "
+              f"{drop['max_rel_l2']:.2e} (tol {MESH_F32_GRAD:.0e}, largest at "
+              f"{drop['max_rel_l2_at']}); samples dropped / kept by the "
+              f"masks: one process {drop_ref[0]} / {drop_ref[1]}, the ranks "
+              f"{masks} [{smi}]", flush=True)
+        if (drop["rel_loss"] > MESH_F32_LOSS
+                or drop["max_rel_l2"] > MESH_F32_GRAD):
+            bad.append("mesh drop-path: not the one-process step")
+        if not (drop_ref[0] > 0 and drop_ref[1] > 0):
+            bad.append(f"mesh drop-path: masks dropped / kept {drop_ref}")
+        if [sum(m) for m in zip(*masks)] != drop_ref:
+            bad.append(f"mesh drop-path: the ranks' masks {masks} are not "
+                       f"the one process's {drop_ref}")
+        state = {name: [x[name]["state_gib"] for x in res]
+                 for name in ("sp", "tp")}
+        print(f"mesh sp: parameters + AdamW state a rank {state['sp']} GiB, "
+              f"the tensor-parallel run's {state['tp']} GiB (tol "
+              f"{MESH_STATE_GIB_TOL} GiB) [{smi}]", flush=True)
+        if max(abs(a - b) for a, b in zip(*state.values())) \
+                > MESH_STATE_GIB_TOL:
+            bad.append("mesh sp: the video tower's state is not split")
         pp = res[0]["pp"]
         print(f"mesh (d) pipeline: ViT-B's 12 blocks at {PP_STAGES} stages x "
               f"n_micro {PP_MICRO}, {PP_CLIPS} clips, bf16: output cosine "
@@ -4198,13 +4280,15 @@ def wait_ranks(procs, label: str, stdin: dict = None) -> list:
 
 
 def mesh_runs(arch: dict, initial: dict, data, device,
-              timed: bool) -> dict:
-    """Each of ``MESH_RUNS`` on this rank: ``arch`` from ``initial`` on its
+              timed: bool, runs=MESH_RUNS) -> dict:
+    """Each of ``runs`` on this rank: ``arch`` from ``initial`` on its
     data rank's rows of the global batches ``data(clips)`` gives with
     their one-process reference (None on ranks but 0); rank 0 reports the
     first-step gradient (reduced over the mesh, gathered whole) and the
-    update against the reference's.  ``timed``: launches, collectives,
-    step times, peak memory and state bytes too."""
+    update against the reference's.  A run the mesh leaves to the DDP
+    wrapper (data parallel, no ZeRO) trains through it.  Every run counts
+    the samples its drop-path masks drop and keep; ``timed``: launches,
+    collectives, step times, peak memory and state bytes too."""
     import torch
 
     from egovlp_tpu_torch import build
@@ -4212,13 +4296,13 @@ def mesh_runs(arch: dict, initial: dict, data, device,
     from egovlp_tpu_torch.core.mesh import MeshSpec, create_mesh, shard_batch
     from egovlp_tpu_torch.core.zero import apply_mesh, full_state
     from egovlp_tpu_torch.kernels import cuda_attention as ca
-    from egovlp_tpu_torch.train.recipes import step_generator
+    from egovlp_tpu_torch.train.recipes import data_parallel, step_generator
     from egovlp_tpu_torch.train.state import make_optimizer
     from egovlp_tpu_torch.train.steps import make_egoclip_train_step
 
     log = logging.getLogger("chip_smoke")
     results = {}
-    for name, mesh, sp, zero, clips in MESH_RUNS:
+    for name, mesh, sp, zero, clips in runs:
         batches, ref = data(clips)
         model, _ = build.build_model(arch, device)
         model.load_state_dict(initial)
@@ -4228,20 +4312,33 @@ def mesh_runs(arch: dict, initial: dict, data, device,
             update = apply_mesh(model, opt, grid, sequence_parallel=sp,
                                 zero=zero, logger=log)
             names = {id(p): k for k, p in model.named_parameters()}
-            first, reduce = {}, update.gradients
+            first, trained = {}, model
+            if update is None:  # data parallel: the DDP wrapper reduces
+                trained, step_opt = data_parallel(model, device), opt.step
 
-            def recorded(params):
-                grads, targets = reduce(params)
-                if "_done" not in first:
-                    for ps, gs in zip(params, grads):
-                        for p, g in zip(ps, gs):
-                            whole = update.full(g, p, True)
-                            if ref is not None:
-                                first[names[id(p)]] = whole.cpu()
+                def recorded_step():
+                    if "_done" not in first and ref is not None:
+                        first.update({k: p.grad.detach().cpu().clone()
+                                      for k, p in model.named_parameters()})
                     first["_done"] = True
-                return grads, targets
+                    step_opt()
 
-            update.gradients = recorded
+                opt.step = recorded_step
+            else:
+                reduce = update.gradients
+
+                def recorded(params):
+                    grads, targets = reduce(params)
+                    if "_done" not in first:
+                        for ps, gs in zip(params, grads):
+                            for p, g in zip(ps, gs):
+                                whole = update.full(g, p, True)
+                                if ref is not None:
+                                    first[names[id(p)]] = whole.cpu()
+                        first["_done"] = True
+                    return grads, targets
+
+                update.gradients = recorded
             step = make_egoclip_train_step()
             local = [shard_batch(b, grid, device) for b in batches]
             torch.cuda.synchronize()
@@ -4249,14 +4346,16 @@ def mesh_runs(arch: dict, initial: dict, data, device,
             ca.reset_launch_counts()
             collectives.traffic.clear()
             losses, times = [], []
-            for i, b in enumerate(local):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                losses.append(step(model, opt, b,
-                                   step_generator(DEVICE, 0, 1, i)).item())
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            run = {"mesh": mesh, "losses": losses}
+            with MaskCount() as masks:
+                for i, b in enumerate(local):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses.append(step(trained, opt, b, step_generator(
+                        DEVICE, 0, 1, i)).item())
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+            run = {"mesh": mesh, "losses": losses,
+                   "masks": [masks.dropped, masks.kept]}
             if timed:
                 state = sum(p.numel() * p.element_size()
                             for p in model.parameters())
@@ -4281,7 +4380,7 @@ def mesh_runs(arch: dict, initial: dict, data, device,
                             ("rel_loss", "max_rel_l2", "max_rel_l2_at")})
                 del got
             results[name] = run
-        del model, opt, update, sd, first, local
+        del model, opt, update, sd, first, local, trained
         torch.cuda.empty_cache()
     return results
 
@@ -4304,19 +4403,25 @@ def mesh_worker(out: Path) -> None:
     refs = (torch.load(io.BytesIO(sys.stdin.buffer.read()), weights_only=True)
             if rank == 0 else {})
 
-    def inputs(prefix, n):
+    def inputs(prefix, n, ref=None):
         npz = np.load(out / f"{prefix}batches.npz")
         batches = [{k.split("/", 1)[1]: npz[k] for k in npz.files
                     if k.startswith(f"{i}/")} for i in range(n)]
-        return batches, refs.get(prefix)
+        return batches, refs.get(ref or prefix)
 
     results = mesh_runs(mesh_arch(), mesh_initial(mesh_arch(), device),
                         lambda clips: inputs(f"b{2 * clips}_", MESH_STEPS),
                         device, timed=True)
     small = inputs("f32_", 1)
     f32_arch = mesh_arch("fp32", depth=2, text_layers=2)
-    results["f32"] = mesh_runs(f32_arch, mesh_initial(f32_arch, device),
-                               lambda clips: small, device, timed=False)
+    f32_initial = mesh_initial(f32_arch, device)
+    results["f32"] = mesh_runs(f32_arch, f32_initial, lambda clips: small,
+                               device, timed=False)
+    drop = inputs("f32_", 1, "drop_")
+    results["drop"] = mesh_runs(
+        mesh_arch("fp32", depth=2, text_layers=2,
+                  drop_path_rate=MESH_DROP_RATE), f32_initial,
+        lambda clips: drop, device, timed=False, runs=(MESH_DROP_RUN,))
     results["pp"] = pipeline_check(rank, device)
     (out / f"rank{rank}.json").write_text(json.dumps(results))
     dist.destroy_process_group()

@@ -22,9 +22,10 @@ group, or the world's when no mesh is active: the steps, the collectives
 of the global batch, the ring and the evaluation gather run over them.
 
 Every parameter a mesh shards carries a ``ParamShard`` (``SHARD_ATTR``):
-its full shape, the dim tensor parallelism splits (and whether it is the
-head-aligned fused qkv), the dim ZeRO splits, and whether its gradient is
-summed over the model group (the sequence-parallel video tower).
+its full shape, the dim the model group splits (and whether it is the
+head-aligned fused qkv), the dim ZeRO splits, whether its gradient is
+summed over the model group and whether the split is storage only (both
+for the sequence-parallel video tower).
 """
 
 from __future__ import annotations
@@ -87,17 +88,23 @@ class Axis:
 @dataclasses.dataclass(frozen=True)
 class ParamShard:
     """How a mesh stores one parameter (see the module notes).
-    ``tp_dim``: the dim tensor parallelism splits (None: whole);
+    ``tp_dim``: the dim the model group splits (None: whole); each model
+    rank holds its own slice and its own slice's gradient;
     ``qkv``: the split is the head-aligned fused ``[q|k|v]`` rows;
     ``zero_dim``: the dim ZeRO splits over the data group;
     ``sum_over_model``: the gradient is summed over the model group before
-    the data mean (the sequence-parallel video tower)."""
+    the data mean (the sequence-parallel video tower);
+    ``whole_at_use``: the ``tp_dim`` split is storage only: the module
+    computes with the whole tensor, gathered over the model group before
+    it runs, and its summed gradient is reduce-scattered to the slice (the
+    sequence-parallel video tower's tensor-parallel leaves)."""
 
     full_shape: Tuple[int, ...]
     tp_dim: Optional[int] = None
     qkv: bool = False
     zero_dim: Optional[int] = None
     sum_over_model: bool = False
+    whole_at_use: bool = False
 
 
 def param_shard(p: torch.Tensor) -> ParamShard:

@@ -38,9 +38,22 @@ columns) are this rank's part.  Every video parameter's gradient is then
 the sum over the model group of the ranks' gradients
 (``ParamShard.sum_over_model``), before the data mean.
 
-The video tower's parameters stay whole on every model rank under
-sequence parallelism (JAX stores them tensor-split and gathers them at
-use, ``recipes.py:231-236``); the text tower is tensor-parallel.
+**Storage.**  As JAX stores the whole train state with tensor-parallel
+shardings under sequence parallelism too (``recipes.py:231-236``), the
+video tower's leaves that tensor parallelism's rules split (``qkv`` and
+``fc1`` weights and biases by their rows, ``proj`` and ``fc2`` weights by
+their columns; ``core/tp.py``'s ``split_dim``) and their AdamW moments
+are held as this rank's contiguous slice between steps
+(``ParamShard.whole_at_use``).  ``core/zero.MeshUpdate`` gathers them
+whole in a forward pre-hook on the tower, before its first use in a step,
+and keeps them whole through the backward (recompute and GradCache's
+second pass included); their summed gradient is reduce-scattered to the
+slice, the update touches the slice, and the leaves go back to it.  Only
+the storage is split: the tower computes with the whole weights, so the
+activations and collectives above do not change.  The other video leaves
+(the norms, ``cls_token``, the embeddings, the row biases) and
+``vid_proj`` stay whole, their gradients all-reduced over the model group;
+the text tower is tensor-parallel.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ import torch.distributed as dist
 
 from egovlp_tpu_torch.core.collectives import all_reduce, all_to_all
 from egovlp_tpu_torch.core.mesh import Mesh, set_param_shard
+from egovlp_tpu_torch.core.tp import _slice_, split_dim
 
 
 class SPGroup:
@@ -165,19 +179,27 @@ def cls_row_parts(qc, kc, vc, kp, vp, heads: int, scale: float,
     return oc.reshape(B, 1, D)
 
 
-def enable_sequence_parallel(model: torch.nn.Module, mesh: Mesh) -> int:
+def enable_sequence_parallel(model: torch.nn.Module, mesh: Mesh,
+                             optimizer=None) -> int:
     """Run ``model``'s video tower (a ``DualEncoder``) sequence-parallel
-    over ``mesh``'s model group and mark its and ``vid_proj``'s
-    parameters to be summed over that group; returns their count."""
+    over ``mesh``'s model group, mark its and ``vid_proj``'s parameters to
+    be summed over that group, and cut the tower's tensor-parallel leaves
+    and ``optimizer``'s moments of them to this rank's slices (see the
+    module notes); returns the number of leaves cut."""
     sp = SPGroup(mesh.model.group, mesh.model.rank, mesh.model.size)
     tower = model.video_model
     tower.sp = sp
     for blk in tower.blocks:
         blk.sp = sp
         blk.attn.sp = blk.timeattn.sp = sp
-    n = 0
     for mod in (tower, model.vid_proj):
         for p in mod.parameters():
             set_param_shard(p, sum_over_model=True)
+    n = 0
+    for name, p in tower.named_parameters():
+        d = split_dim(name, tuple(p.shape), sp.size)
+        if d is not None:
+            set_param_shard(p, tp_dim=d, whole_at_use=True)
+            _slice_(p, optimizer, d, False, sp.rank, sp.size)
             n += 1
     return n

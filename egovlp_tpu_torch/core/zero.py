@@ -27,8 +27,14 @@ Without ZeRO, ``MeshUpdate`` takes the place of ``DistributedDataParallel``
 whenever the mesh has a model axis: after the backward it sums the
 sequence-parallel video tower's gradients over the model group
 (``ParamShard.sum_over_model``) and averages every gradient over the data
-group, in buckets.  ``full_state`` gathers the model's and the
-optimizer's tensors whole, under the reference names, for checkpoints.
+group, in buckets.  The tower's leaves stored split over the model group
+(``ParamShard.whole_at_use``, ``core/sp.py``) work as stage 3 does over
+the data group: a forward pre-hook gathers them, their gradient is
+reduce-scattered over the model group, and they go back to their slices
+once the backward is over, at the start of the update; ZeRO then treats
+them as tensor-parallel leaves.  ``full_state`` gathers the model's and
+the optimizer's tensors whole, under the reference names, for
+checkpoints.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from egovlp_tpu_torch.core.collectives import (
     reduce_scatter_dim,
 )
 from egovlp_tpu_torch.core.mesh import Mesh, param_shard, set_param_shard
-from egovlp_tpu_torch.core.tp import gather_tp
+from egovlp_tpu_torch.core.tp import gather_tp, shard_slice
 
 STAGES = (1, 3)
 # gradients all-reduced together, in elements
@@ -80,32 +86,36 @@ class MeshUpdate:
             raise ValueError(f"zero stage must be 1 or 3, got {stage!r}")
         self.mesh, self.stage = mesh, stage
         self.params = list(model.parameters())
+        # held as their data group slice (stage 3) / their model group
+        # slice (whole_at_use; apply_mesh has cut them)
         self.released: set = set()
-        if not stage:
-            return
-        from egovlp_tpu_torch.core.precision import Linear
+        self.model_split = [p for p in self.params
+                            if param_shard(p).whole_at_use]
+        self.model_released: set = set(self.model_split)
+        if stage:
+            from egovlp_tpu_torch.core.precision import Linear
 
-        n = mesh.data.size
-        for mod in model.modules():
-            for p in mod.parameters(recurse=False):
-                s = param_shard(p)
-                d = zero_dim(s.full_shape, s.tp_dim, n,
-                             isinstance(mod, Linear) and p is mod.weight,
-                             min_size)
-                if d is not None:
-                    set_param_shard(p, zero_dim=d)
-        if stage == 3:
-            # each top-level part (a tower, a head) gathers its parameters
-            # before it runs: a module may read a child's weights without
-            # calling the child (PatchEmbed)
-            for part in [model, *model.children()]:
-                owned = tuple(
-                    p for p in (part.parameters(recurse=False)
-                                if part is model else part.parameters())
-                    if param_shard(p).zero_dim is not None)
-                if owned:
-                    part.register_forward_pre_hook(
-                        lambda _m, _a, ps=owned: self.gather(ps))
+            n = mesh.data.size
+            for mod in model.modules():
+                for p in mod.parameters(recurse=False):
+                    s = param_shard(p)
+                    d = zero_dim(s.full_shape, s.tp_dim, n,
+                                 isinstance(mod, Linear) and p is mod.weight,
+                                 min_size)
+                    if d is not None:
+                        set_param_shard(p, zero_dim=d)
+        # each top-level part (a tower, a head) gathers the parameters it
+        # stores split before it runs: a module may read a child's weights
+        # without calling the child (PatchEmbed)
+        for part in [model, *model.children()]:
+            owned = tuple(
+                p for p in (part.parameters(recurse=False)
+                            if part is model else part.parameters())
+                if param_shard(p).whole_at_use
+                or (stage == 3 and param_shard(p).zero_dim is not None))
+            if owned:
+                part.register_forward_pre_hook(
+                    lambda _m, _a, ps=owned: self.gather(ps))
 
     def sharded(self) -> List[torch.nn.Parameter]:
         return [p for p in self.params if param_shard(p).zero_dim is not None]
@@ -124,7 +134,9 @@ class MeshUpdate:
                                       n).clone()
 
     def release(self) -> None:
-        """Stage 3: every sharded parameter back to its slice."""
+        """Every parameter stored split back to its slice: the model
+        group's (``whole_at_use``), then stage 3's."""
+        self._release_model()
         if self.stage != 3:
             return
         r, n = self.mesh.data.rank, self.mesh.data.size
@@ -136,19 +148,37 @@ class MeshUpdate:
                     p.grad = None
                     self.released.add(p)
 
-    def gather(self, params=None) -> None:
-        """Stage 3: ``params`` (default: all) whole again."""
-        todo = [p for p in (params if params is not None else self.sharded())
-                if p in self.released]
+    def _release_model(self) -> None:
+        m = self.mesh.model
+        with torch.no_grad():
+            for p in self.model_split:
+                if p not in self.model_released:
+                    s = param_shard(p)
+                    p.data = shard_slice(p.data, s.tp_dim, s.qkv, m.rank,
+                                         m.size).clone()
+                    p.grad = None
+                    self.model_released.add(p)
+
+    def gather(self, params) -> None:
+        """``params`` whole again: stage 3's slices gathered over the
+        data group, then ``whole_at_use`` slices over the model group."""
+        todo = [p for p in params
+                if p in self.released or p in self.model_released]
         if not todo:
             return
         # gathered weights must stay usable by autograd after an
         # inference-mode evaluation gathered them
         with torch.inference_mode(False), torch.no_grad():
             for p in todo:
-                p.data = all_gather_dim(p.data, param_shard(p).zero_dim,
-                                        self.mesh.data.group)
-                self.released.discard(p)
+                s = param_shard(p)
+                if p in self.released:
+                    p.data = all_gather_dim(p.data, s.zero_dim,
+                                            self.mesh.data.group)
+                    self.released.discard(p)
+                if p in self.model_released:
+                    p.data = gather_tp(p.data, s.tp_dim, s.qkv,
+                                       self.mesh.model.group)
+                    self.model_released.discard(p)
 
     # ---- the step ---------------------------------------------------------
 
@@ -161,8 +191,18 @@ class MeshUpdate:
         r, n = mesh.data.rank, mesh.data.size
         flat = [p for ps in params for p in ps]
         grads = {p: p.grad.float() for p in flat}
+        # the backward is over: the leaves stored split over the model
+        # group back to their slices, which the update then touches
+        self._release_model()
         over_model = [p for p in flat if param_shard(p).sum_over_model]
-        self._bucketed(over_model, grads, mesh.model.group)
+        for p in over_model:  # in one order on every rank
+            s = param_shard(p)
+            if s.whole_at_use:
+                grads[p] = reduce_scatter_dim(grads[p], s.tp_dim,
+                                              mesh.model.group)
+        self._bucketed([p for p in over_model
+                        if not param_shard(p).whole_at_use], grads,
+                       mesh.model.group)
         scatter = {p for p in flat if self.stage == 3
                    and param_shard(p).zero_dim is not None}
         for p in flat:  # in one order on every rank
@@ -217,7 +257,8 @@ class MeshUpdate:
                 ) -> torch.Tensor:
         """The global squared norm from each tensor's local squared norm
         ``sq`` (of the ``gradients`` output): a replicated tensor's share
-        is divided by the group size, the sums all-reduced."""
+        is divided by the group size, the sums all-reduced (a model-split
+        leaf, ``whole_at_use`` too, is this rank's slice: counted once)."""
         mesh = self.mesh
         w = []
         for p in params:
@@ -287,11 +328,11 @@ def apply_mesh(model: torch.nn.Module, optimizer, mesh: Mesh,
     if mesh.model.size == 1 and not zero:
         return None
     if mesh.model.size > 1:
-        skip = ()
+        skip, n = (), 0
         if sequence_parallel:
-            enable_sequence_parallel(model, mesh)
+            n = enable_sequence_parallel(model, mesh, optimizer)
             skip = ("video_model", "vid_proj")
-        n = shard_state_tp(model, optimizer, mesh, skip=skip)
+        n += shard_state_tp(model, optimizer, mesh, skip=skip)
         if logger is not None:
             logger.info("tensor parallelism: model axis %d, %d parameters "
                         "split%s", mesh.model.size, n,
@@ -316,9 +357,11 @@ def full_state(model: torch.nn.Module, optimizer
     """``(model.state_dict(), optimizer.state_dict())`` with every sharded
     tensor whole, on every rank (a collective: every rank calls it)."""
     update = getattr(optimizer, "mesh_update", None)
-    sd, osd = model.state_dict(), optimizer.state_dict()
     if update is None:
-        return sd, osd
+        return model.state_dict(), optimizer.state_dict()
+    # every parameter at its stored slice (an evaluation may have gathered)
+    update.release()
+    sd, osd = model.state_dict(), optimizer.state_dict()
     names = {id(p): k for k, p in model.named_parameters()}
     index = {id(p): i for i, p in enumerate(
         p for g in optimizer.param_groups for p in g["params"])}

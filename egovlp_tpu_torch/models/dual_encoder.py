@@ -21,6 +21,7 @@ from egovlp_tpu_torch.core.precision import Linear
 from egovlp_tpu_torch.core.sp import scale_grad
 from egovlp_tpu_torch.models.text_tower import DistilBert, TextTowerConfig
 from egovlp_tpu_torch.models.video_tower import (
+    GlobalRows,
     SpaceTimeTransformer,
     VideoTowerConfig,
 )
@@ -54,12 +55,14 @@ class DualEncoder(nn.Module):
         else:
             raise NotImplementedError(cfg.projection)
 
-    def encode_video(self, video, generator: "torch.Generator | None" = None):
+    def encode_video(self, video, generator: "torch.Generator | None" = None,
+                     rows: "GlobalRows | None" = None):
         """``[B, T, H, W, 3]`` -> ``[B, projection_dim]`` float32;
-        ``generator`` draws the drop-path masks in training mode.  Under
+        ``generator`` draws the drop-path masks in training mode, those of
+        the global batch when ``rows`` places the clips in it.  Under
         sequence parallelism its gradient is scaled by ``1 / m``: every
         model rank carries a part of the CLS stream's (``core/sp.py``)."""
-        v = self.vid_proj(self.video_model(video, generator)).float()
+        v = self.vid_proj(self.video_model(video, generator, rows)).float()
         sp = self.video_model.sp
         return v if sp is None else scale_grad(v, 1.0 / sp.size)
 
@@ -73,7 +76,8 @@ class DualEncoder(nn.Module):
         return self.txt_proj(self.text_model(input_ids, attention_mask)).float()
 
     def forward(self, video, input_ids=None, attention_mask=None,
-                generator: "torch.Generator | None" = None):
+                generator: "torch.Generator | None" = None,
+                rows: "GlobalRows | None" = None):
         """The training forward (``DualEncoder.__call__`` of the JAX
         package, :90-96): ``(text_embeddings, video_embeddings)``.  With
         no ``input_ids`` it is the video-only forward of the OSCC / PNR
@@ -81,9 +85,9 @@ class DualEncoder(nn.Module):
         through ``DistributedDataParallel`` so that the video tower's
         gradients are all-reduced."""
         if input_ids is None:
-            return self.encode_video(video, generator)
+            return self.encode_video(video, generator, rows)
         return (self.encode_text(input_ids, attention_mask),
-                self.encode_video(video, generator))
+                self.encode_video(video, generator, rows))
 
 
 def sim_matrix(a: torch.Tensor, b: torch.Tensor,

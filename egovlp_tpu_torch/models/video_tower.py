@@ -19,7 +19,12 @@ published EgoVLP checkpoint alike.  Kept from the JAX tower:
 * training mode: drop-path at rates ``linspace(0, drop_path_rate, depth)``
   on the space-attention and MLP branches, one keep mask per sample for
   both parts of the pair, drawn from an explicit ``torch.Generator``
-  (``video_tower.py:333-345`` of the JAX package).
+  (``video_tower.py:333-345`` of the JAX package).  JAX draws one mask
+  over the global batch axis; in a multi-process run the step passes the
+  pass's ``GlobalRows``: every rank draws the masks of all the global
+  rows from the same generator and keeps its own, so the masks are those
+  of one process on the global batch, and every model rank of a data
+  replica (sequence or tensor parallelism) applies the same ones.
 
 Activation recompute (``remat``, JAX :95-108, :284-301, :414-415), by
 ``torch.utils.checkpoint`` (non-reentrant) unless said otherwise:
@@ -280,6 +285,16 @@ def drop_path_mask(batch: int, rate: float,
     return mask / keep
 
 
+@dataclasses.dataclass(frozen=True)
+class GlobalRows:
+    """Where a forward pass's samples sit in the pass's global batch: the
+    drop-path masks are drawn for all ``total`` rows and this rank keeps
+    the ones at ``index`` (its local rows, in order)."""
+
+    total: int
+    index: torch.Tensor
+
+
 def drop_path(xc, xp, mask: torch.Tensor):
     """Per-sample path drop of the ``(cls, grid)`` pair by a
     ``drop_path_mask``: one scale per sample for both parts."""
@@ -315,11 +330,17 @@ class SpaceTimeBlock(nn.Module):
                                  device=device)
         self.mlp = Mlp(D, int(D * cfg.mlp_ratio), device=device)
 
-    def forward(self, xc, xp, generator: "torch.Generator | None" = None):
-        # both masks drawn before any recomputed region (space, then MLP)
-        masks = ((drop_path_mask(xc.shape[0], self.drop_path, generator),
-                  drop_path_mask(xc.shape[0], self.drop_path, generator))
-                 if self.training and self.drop_path > 0.0 else ())
+    def forward(self, xc, xp, generator: "torch.Generator | None" = None,
+                rows: "GlobalRows | None" = None):
+        # both masks drawn before any recomputed region (space, then MLP),
+        # for the global batch's rows when ``rows`` places this one's
+        masks = ()
+        if self.training and self.drop_path > 0.0:
+            total = xc.shape[0] if rows is None else rows.total
+            masks = tuple(drop_path_mask(total, self.drop_path, generator)
+                          for _ in range(2))
+            if rows is not None:
+                masks = tuple(m[rows.index.to(m.device)] for m in masks)
         if self.remat == "block" and torch.is_grad_enabled():
             return _recompute(self._body, xc, xp, *masks)
         return self._body(xc, xp, *masks)
@@ -411,13 +432,19 @@ class SpaceTimeTransformer(nn.Module):
                      + self.temporal_embed[:, :T, None, :])
         return cls, x + patch_pos.to(dt)
 
-    def forward(self, video, generator: "torch.Generator | None" = None):
+    def forward(self, video, generator: "torch.Generator | None" = None,
+                rows: "GlobalRows | None" = None):
         """video: ``[B, T, H, W, 3]`` channels-last, ``T <= num_frames``;
-        ``generator`` draws the drop-path masks in training mode."""
+        ``generator`` draws the drop-path masks in training mode, for the
+        global batch that ``rows`` places these ``B`` samples in (None:
+        these samples alone)."""
+        if rows is not None and len(rows.index) != video.shape[0]:
+            raise ValueError(f"{len(rows.index)} global rows for "
+                             f"{video.shape[0]} samples")
         xc, xp = self.embed(video)
         if self.sp is not None:
             self.sp.check(xp.shape[1], xp.shape[2])
             xp = self.sp.columns(xp)
         for blk in self.blocks:
-            xc, xp = blk(xc, xp, generator)
+            xc, xp = blk(xc, xp, generator, rows)
         return self.norm(xc)[:, 0]

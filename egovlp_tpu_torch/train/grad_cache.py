@@ -16,7 +16,9 @@ while holding the tower activations of one micro-batch only:
 Both passes of a micro-batch draw the same random numbers (drop-path
 masks): the generator's state before its pass-1 forward is restored before
 its pass-2 forward (JAX gives both passes the same key, :70, :85), and the
-state after pass 1 is restored at the end.  Under
+state after pass 1 is restored at the end.  In a multi-process run the
+EgoClip step draws a pass's masks for its global micro-batch
+(``train/steps.py``).  Under
 ``DistributedDataParallel`` pass 2 runs every micro-batch but the last in
 the wrapper's ``no_sync()``, so the gradients are all-reduced once.
 """

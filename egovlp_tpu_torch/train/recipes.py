@@ -237,13 +237,6 @@ def check_ported(config) -> None:
     zero = (config.get("mesh") or {}).get("zero") or 0
     if zero and int(zero) not in (1, 3):
         raise ValueError(f"zero stage must be 1 or 3, got {zero!r}")
-    drop_path = float(config.get_path(
-        "arch.args.video_params.drop_path_rate", 0.0) or 0.0)
-    if world > 1 and drop_path > 0:
-        raise NotImplementedError(
-            f"drop_path_rate={drop_path} in a world of {world}: drop-path "
-            "masks of the global batch are not ported (ROADMAP.md, Queue "
-            "A, A9)")
 
 
 def resolve_device(device: "torch.device | str") -> torch.device:

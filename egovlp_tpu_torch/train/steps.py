@@ -23,19 +23,27 @@ In a multi-process run (one process per GPU, the model wrapped in
 ``DistributedDataParallel``) the step computes the JAX step's global-batch
 loss.  The global batch is the ranks' local batches in rank order, with
 the scene negatives concatenated on the global rows, ``[pos_all;
-neg_all]`` (:116-122).  Each rank draws the crop boxes and flips of the
+neg_all]`` (:116-122).  Each rank draws the crop boxes and flips, and in
+training mode the video tower's drop-path masks (``GlobalRows``), of the
 whole global batch from the step's generator (the same on every rank) and
 keeps its own rows; the text and video embeddings and the noun and verb
 vectors are all-gathered (``core.collectives.all_gather_rows``) and put
 in global order before the similarity and the loss.  A world-N step so
 equals the one-process step on the concatenated batch, its gradient that
-of the global loss.
+of the global loss.  With GradCache a forward pass is a micro-batch: its
+masks are drawn for the global micro-batch, the ranks' micro-batches of
+the same index in rank order.  A world-N GradCache step so equals the
+one-process GradCache step (the same ``n_micro``) on the batch whose
+micro-batch j is the ranks' micro-batches j in rank order: with scene
+negatives and ``n_micro`` 2, the concatenated batch ``[pos_all;
+neg_all]`` itself.
 
 EPIC-Kitchens MIR (``make_epic_train_step``, :195-221): the max-margin
 ranking loss on the cosine similarity matrix, or its adaptive form whose
 margins scale with each clip's caption relevancy (``relation``).
 CharadesEgo (``make_charades_train_step``, :228-246): InfoNCE.  Both
-draw the crop boxes and flips of the global batch and keep their rows,
+draw the crop boxes and flips, and the drop-path masks, of the global
+batch and keep their rows,
 and under DDP all-gather ``t``, ``v`` (and ``relation``) in rank order,
 which is global order (these batches have no negatives), as the EgoClip
 step does.  Ego4D OSCC and PNR (``make_oscc_train_step`` /
@@ -67,6 +75,7 @@ from egovlp_tpu_torch.data.transforms import (
     sample_crop_boxes,
 )
 from egovlp_tpu_torch.models.dual_encoder import sim_matrix
+from egovlp_tpu_torch.models.video_tower import GlobalRows
 from egovlp_tpu_torch.objectives.classification import cross_entropy, nll
 from egovlp_tpu_torch.objectives.contrastive import egonce, info_nce
 from egovlp_tpu_torch.objectives.ranking import adaptive_max_margin, max_margin
@@ -138,9 +147,11 @@ def make_egoclip_train_step(loss_type: str = "EgoNCE", input_res: int = 224,
         b = batch["frames"].shape[0]
         boxes, flips = sample_crop_boxes(generator, world * frames.shape[0],
                                          frames.shape[2])
+        rows = None  # this rank's rows of the global batch
         if world > 1:
-            rows = _global_rows(b, rank, world, negatives, boxes.device)
-            boxes, flips = boxes[rows], flips[rows]
+            index = _global_rows(b, rank, world, negatives, boxes.device)
+            boxes, flips = boxes[index], flips[index]
+            rows = GlobalRows(world * frames.shape[0], index)
         video = resized_crop_flip(frames, boxes, flips, out_size=input_res)
         verb_vec, noun_vec = parts["verb_vec"], parts["noun_vec"]
         model.train()
@@ -169,12 +180,16 @@ def make_egoclip_train_step(loss_type: str = "EgoNCE", input_res: int = 224,
 
         if n_micro == 1:
             t, v = model(video, parts["text_ids"], parts["text_mask"],
-                         generator=generator)
+                         generator=generator, rows=rows)
             return _update(optimizer, loss_of(t, v))
 
         def embed(mb):
+            n = mb["video"].shape[0]
+            # the global micro-batch: the ranks' micro-batches in rank order
+            mb_rows = None if world == 1 else GlobalRows(
+                world * n, _global_rows(n, rank, world, False, boxes.device))
             return model(mb["video"], mb["ids"], mb["mask"],
-                         generator=generator)
+                         generator=generator, rows=mb_rows)
 
         optimizer.zero_grad(set_to_none=True)
         loss = grad_cache_value_and_grad(embed, loss_of, n_micro)(
@@ -188,18 +203,22 @@ def make_egoclip_train_step(loss_type: str = "EgoNCE", input_res: int = 224,
 
 
 def _train_video(model, frames: torch.Tensor, generator: torch.Generator,
-                 input_res: int) -> torch.Tensor:
+                 input_res: int) -> tuple:
     """The train transform of a batch without negatives, its crop boxes
     and flips drawn for the global batch and this rank's rows kept; puts
-    ``model`` in training mode."""
+    ``model`` in training mode.  ``(video, rows)``: ``rows`` places the
+    clips in the global batch for the drop-path masks (None in one
+    process)."""
     rank, world = data_shard()
     b = frames.shape[0]
     boxes, flips = sample_crop_boxes(generator, world * b, frames.shape[2])
+    rows = None
     if world > 1:
-        rows = _global_rows(b, rank, world, False, boxes.device)
-        boxes, flips = boxes[rows], flips[rows]
+        index = _global_rows(b, rank, world, False, boxes.device)
+        boxes, flips = boxes[index], flips[index]
+        rows = GlobalRows(world * b, index)
     model.train()
-    return resized_crop_flip(frames, boxes, flips, out_size=input_res)
+    return resized_crop_flip(frames, boxes, flips, out_size=input_res), rows
 
 
 def _finetune_forward(model, batch: Dict[str, torch.Tensor],
@@ -208,9 +227,9 @@ def _finetune_forward(model, batch: Dict[str, torch.Tensor],
     """The train transform and forward of a batch without negatives:
     ``(t, v, *batch[k] for k in gathered)``, all-gathered in global order
     in a multi-process run."""
-    video = _train_video(model, batch["frames"], generator, input_res)
+    video, rows = _train_video(model, batch["frames"], generator, input_res)
     t, v = model(video, batch["text_ids"], batch["text_mask"],
-                 generator=generator)
+                 generator=generator, rows=rows)
     return tuple(all_gather_rows(x) for x in
                  (t, v, *(batch[k] for k in gathered)))
 
@@ -222,8 +241,8 @@ def _video_only_forward(model, batch: Dict[str, torch.Tensor],
     k in gathered)``.  The text tower takes no part, so under DDP the
     wrapper must look for unused parameters
     (``recipes.data_parallel``)."""
-    video = _train_video(model, batch["frames"], generator, input_res)
-    v = model(video, generator=generator)
+    video, rows = _train_video(model, batch["frames"], generator, input_res)
+    v = model(video, generator=generator, rows=rows)
     return tuple(all_gather_rows(x) for x in
                  (v, *(batch[k] for k in gathered)))
 

@@ -4,7 +4,8 @@ Each test starts one ``tests/torch_ddp_worker.py`` process a rank, with
 torchrun's environment, and waits for each with a timeout.
 
 * ``core.dist`` without a group (the one-process answers) and its
-  refusals; the device and config checks of a world of 2;
+  refusals; the device and config checks of a world of 2 (a drop-path
+  rate is taken);
 * ``all_gather_rows`` at worlds 1, 2 and 4: the identity at world 1;
   forward, every rank's rows in rank order; backward, the sum over the
   ranks of the incoming gradient, this rank's rows (a reduce-scatter, so
@@ -142,8 +143,8 @@ def test_init_distributed_needs_torchruns_environment(monkeypatch):
 
 def test_world_2_device_and_config_checks(monkeypatch):
     """In a world of 2: 'cuda' is this rank's GPU (the one DDP binds to),
-    the data-parallel size must be 2, and drop-path masks (not ported
-    across ranks) raise."""
+    the data-parallel size must be 2, and a drop-path rate is taken (its
+    masks are the global batch's: ``tests/test_torch_tp_sp.py``)."""
     monkeypatch.setattr(recipes, "process_shard", lambda: (1, 2))
     monkeypatch.setattr(recipes, "in_process_group", lambda: True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -159,8 +160,7 @@ def test_world_2_device_and_config_checks(monkeypatch):
                                              "size is 2"):
             recipes.check_ported(bad)
     cfg.override("arch.args.video_params.drop_path_rate", 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*A9"):
-        recipes.check_ported(cfg)
+    recipes.check_ported(cfg)
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])

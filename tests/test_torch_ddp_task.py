@@ -8,14 +8,19 @@ mirroring ``tests/test_multihost_proc.py``'s run_task test:
   run A: 1 process at batch 2 (2 + 2 scene negatives), 2 epochs;
   run B: 2 processes at batch 1 each (global 2), 1 epoch;
   run C: 2 processes resumed from B's checkpoint, trains epoch 2;
-  run D: 2 processes, 2 epochs, started by torchrun itself.
+  run D: 2 processes, 2 epochs, started by torchrun itself;
+  run E: 2 processes on a model-2 mesh with sequence parallelism (one
+  data replica of batch 1 a chip: A's global batch), 2 epochs: the video
+  tower stored split over the model group, gathered whole for the steps
+  and for EgoMCQ validation, whole again in the checkpoints.
 
 Each run's epoch logs are read from its rank 0's output (the Trainer logs
 every key of every epoch; other ranks log warnings only).  Same topology
 (B vs D's epoch 1, C vs D's epoch 2) agrees to 1e-6; across topologies
-(D vs A) to 2e-3 at epoch 1 and 1e-2 at epoch 2, the limits of the JAX
-package's test (the gradient sums run in another order, and the drift
-compounds through epoch 2).  Each run writes exactly one run directory
+(D vs A, E vs A) to 2e-3 at epoch 1 and 1e-2 at epoch 2, the limits of
+the JAX package's test (the gradient sums run in another order, and the
+drift compounds through epoch 2); E's last checkpoint loads strictly into
+one process.  Each run writes exactly one run directory
 and one checkpoint an epoch, rank 0's, with no ``module.`` prefixes; B's
 checkpoint loads into a one-process ``run_task(resume=...)`` and into
 ``cli.eval``, and ``cli.eval --multihost`` in 2 processes prints one
@@ -30,6 +35,7 @@ import sys
 import pytest
 import torch
 
+from egovlp_tpu_torch import build
 from egovlp_tpu_torch.cli import eval as cli_eval
 from egovlp_tpu_torch.io.config import Config
 from egovlp_tpu_torch.train import recipes
@@ -85,18 +91,23 @@ def runs(egoclip_root, tmp_path_factory):  # noqa: F811
     vocab = tmp / "vocab.txt"
     vocab.write_text("\n".join(VOCAB))
 
-    def config(name, epochs, world):
+    def config(name, epochs, world, mesh=None):
         cfg = tiny_config(egoclip_root, str(vocab), "", str(tmp / name),
                           epochs=epochs)
         cfg["n_devices"] = world
         cfg["data_loader"]["args"]["batch_size"] = 2 // world
+        if mesh:
+            cfg["mesh"] = mesh
         path = tmp / f"{name}.json"
         path.write_text(json.dumps(cfg))
         return ["--config", str(path)]
 
     procs = {"A": start_cli(config("A", 2, 1), 1),
              "B": start_cli(config("B", 1, 2), 2),
-             "D": start_cli(config("D", 2, 2), 2, torchrun=True)}
+             "D": start_cli(config("D", 2, 2), 2, torchrun=True),
+             "E": start_cli(config("E", 2, 2, {"model": 2,
+                                               "sequence_parallel": True}),
+                            2)}
     outs = {name: wait_all(p, timeout=240) for name, p in procs.items()}
     ckpt = run_dir(tmp / "B") / "checkpoint-epoch1.pth"
     outs["C"] = wait_all(start_cli(
@@ -120,6 +131,20 @@ def test_two_processes_match_one(runs):
     for key, val in d.items():
         tol = 2e-3 if key[0] == 1 else 1e-2
         assert val == pytest.approx(a[key], rel=tol, abs=1e-5), key
+
+
+def test_sequence_parallel_run_matches_one_process(runs):
+    a, e = runs["logs"]["A"], runs["logs"]["E"]
+    assert sorted(e) == sorted(a)
+    for key, val in e.items():
+        tol = 2e-3 if key[0] == 1 else 1e-2
+        assert val == pytest.approx(a[key], rel=tol, abs=1e-5), key
+    # the last checkpoint: the whole video tower, strictly into one process
+    payload = torch.load(run_dir(runs["tmp"] / "E") / "checkpoint-epoch2.pth",
+                         weights_only=True)
+    model, _ = build.build_model(tiny_config(
+        runs["root"], runs["vocab"], "", "")["arch"], "cpu")
+    model.load_state_dict(payload["state_dict"], strict=True)
 
 
 def test_rank_0_alone_logs_and_writes_one_run(runs):

@@ -107,8 +107,9 @@ def test_remat_matches_jax_and_no_recompute(params, no_recompute, remat):
                                        atol=2e-5, err_msg=f"{k}, {remat}")
 
 
-def _unreplayed_forward(self, xc, xp, generator=None):
-    """A block that draws its masks inside the recomputed region."""
+def _unreplayed_forward(self, xc, xp, generator=None, rows=None):
+    """A block that draws its masks inside the recomputed region (one
+    process: ``rows`` None)."""
     def body(xc, xp):
         masks = [video_tower.drop_path_mask(xc.shape[0], self.drop_path,
                                             generator)

@@ -13,15 +13,33 @@ subprocesses (``tests/torch_ddp_worker.py mesh``), float32, tiny widths.
   constant added to its logits), float32 noise in both runs, so each
   parameter's L2 error is taken relative to the larger of its gradient's
   norm and 1e-3 of the largest parameter gradient norm;
-* the ranks' local shapes (the head-aligned qkv rows, the row-parallel
-  input dims, whole video weights under sequence parallelism);
+* the ranks' local shapes of the parameters and their AdamW moments
+  between steps (the qkv rows, the row-parallel input dims), the
+  sequence-parallel video tower's as tensor parallelism's: it is stored
+  split over the model group and gathered whole at use;
 * rank 0's checkpoint of the world-2 run holds the full state dict and
-  loads strictly into one process;
+  loads strictly into one process; the sequence-parallel mesh resumes
+  from it (its moments cut to the slices) and trains the one-process
+  second step;
+* at data 2 x model 2 with sequence parallelism and a ``max_grad_norm``
+  that clips, the global norm the clip takes is one process's and the
+  two steps are its steps;
+* drop-path at rate 0.5 (the masks of the global batch, drawn on every
+  rank and sliced): the EgoClip step at data 2 and with sequence
+  parallelism at model 2 (the model ranks apply the same masks; also
+  with 'block' recompute and with GradCache), the GradCache step
+  (``n_micro`` 2) at data 2 and the CharadesEgo step at data 2, each
+  against the one-process step on the concatenated batch (the GradCache
+  ones with ``n_micro`` 2 too): the loss within 1e-5 relative, the
+  gradients as above, the masks the one process's rows; the one-process
+  masks drop some samples and keep others; the tower stored split is
+  gathered once a step under recompute and GradCache;
 * the sequence-parallel divisibility error, and the head-aligned split
   and its inverse.
 """
 
 import json
+import types
 
 import jax
 import numpy as np
@@ -36,6 +54,13 @@ from egovlp_tpu.train.steps import (
 )
 from egovlp_tpu_torch.core.sp import SPGroup
 from egovlp_tpu_torch.core.precision import Linear
+from egovlp_tpu_torch.models import (
+    DualEncoder,
+    DualEncoderConfig,
+    TextTowerConfig,
+    VideoTowerConfig,
+)
+from egovlp_tpu_torch.models import video_tower
 from egovlp_tpu_torch.core.tp import (
     column_linear,
     enter_columns,
@@ -59,6 +84,10 @@ from tests.test_torch_train import SCHED, egoclip_batch, jax_boxes
 
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
 SIMS = ("gather", "ring")
+DROP = {"drop_path_rate": 0.5}
+# below the tiny model's first-step gradient norm (~102 at these seeds):
+# the clip scales every step's gradient
+MAX_GRAD_NORM = 10.0
 
 
 def write_inputs(out, runs, params, batch, boxes):
@@ -71,11 +100,22 @@ def write_inputs(out, runs, params, batch, boxes):
                 "flips": boxes[1]}, out / "batch.pt")
 
 
-def one_process(params, batch, boxes, n_steps=1):
+def one_process(params, batch, boxes, n_steps=1, video=None, n_micro=1,
+                max_grad_norm=None, charades=False, masks=None):
     """The port's one-process steps on the global batch: (losses, the
-    first step's gradients, the state after the last)."""
-    model = port_model(params)
-    opt, _ = make_optimizer(model, **SCHED)
+    first step's gradients, the state after the last, the AdamW moments
+    after it by parameter name).  ``video``
+    overrides the tower's config; ``n_micro``: GradCache micro-batches;
+    ``charades``: the CharadesEgo step on the positives; ``masks``: a list
+    that takes the drop-path masks applied."""
+    if video:
+        model = DualEncoder(DualEncoderConfig(
+            video=VideoTowerConfig(**VIDEO, attention_impl="auto", **video),
+            text=TextTowerConfig(**TEXT), projection_dim=8))
+        model.load_state_dict(params_from_jax(params), strict=True)
+    else:
+        model = port_model(params)
+    opt, _ = make_optimizer(model, **SCHED, max_grad_norm=max_grad_norm)
     grads, update = {}, opt.step
 
     def recorded_step():
@@ -85,12 +125,30 @@ def one_process(params, batch, boxes, n_steps=1):
         update()
 
     opt.step = recorded_step
+    inputs = port_inputs(batch)
+    drop_path = video_tower.drop_path
+
+    def recorded_drop_path(xc, xp, mask):
+        masks.append(mask.clone())
+        return drop_path(xc, xp, mask)
+
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(port_steps, "sample_crop_boxes", lambda gen, n, src: boxes)
-        step = port_steps.make_egoclip_train_step(input_res=RES)
-        losses = [step(model, opt, port_inputs(batch),
-                       torch.Generator()).item() for _ in range(n_steps)]
-    return losses, grads, model.state_dict(), opt
+        mp.setattr(port_steps, "sample_crop_boxes",
+                   lambda gen, n, src: (boxes[0][:n], boxes[1][:n]))
+        if masks is not None:
+            mp.setattr(video_tower, "drop_path", recorded_drop_path)
+        if charades:
+            step = port_steps.make_charades_train_step(input_res=RES)
+            inputs = {k: inputs[k] for k in ("frames", "text_ids",
+                                             "text_mask")}
+        else:
+            step = port_steps.make_egoclip_train_step(input_res=RES,
+                                                      n_micro=n_micro)
+        losses = [step(model, opt, inputs, torch.Generator()).item()
+                  for _ in range(n_steps)]
+    moments = {k: {m: v.clone() for m, v in opt.state[p].items()}
+               for k, p in model.named_parameters() if p in opt.state}
+    return losses, grads, model.state_dict(), moments
 
 
 def jax_loss(params, batch):
@@ -121,12 +179,43 @@ def setup(b_global):
 CASES = {"model2-sp": (2, {"model": 2}, True),
          "model2-tp": (2, {"model": 2}, False),
          "data2-model2-sp": (4, {"data": 2, "model": 2}, True)}
+# the runs each case's ranks take after the gather and ring steps:
+# (name, the run, the one-process reference's name)
+EXTRA = {
+    "model2-sp": [
+        ("resumed", {"mesh": {"model": 2}, "sp": True, "resume": "ckpt"},
+         "two"),
+        ("sp-drop", {"mesh": {"model": 2}, "sp": True, "video": DROP},
+         "drop"),
+        ("sp-drop-block", {"mesh": {"model": 2}, "sp": True,
+                           "video": {**DROP, "remat": "block"}},
+         "drop-block"),
+        ("sp-grad-cache", {"mesh": {"model": 2}, "sp": True, "video": DROP,
+                           "n_micro": 2}, "drop-grad-cache")],
+    "model2-tp": [
+        ("data2-drop", {"mesh": {"data": 2}, "video": DROP}, "drop"),
+        ("data2-grad-cache", {"mesh": {"data": 2}, "video": DROP,
+                              "n_micro": 2}, "drop-grad-cache"),
+        ("data2-charades", {"mesh": {"data": 2}, "video": DROP,
+                            "step": "charades"}, "drop-charades")],
+    "data2-model2-sp": [
+        ("clipped", {"mesh": {"data": 2, "model": 2}, "sp": True,
+                     "max_grad_norm": MAX_GRAD_NORM, "steps": 2},
+         "clipped")],
+}
+# the one-process references of those runs: one_process's arguments
+REFS = {"two": {"n_steps": 2},
+        "drop": {"video": DROP},
+        "drop-block": {"video": {**DROP, "remat": "block"}},
+        "drop-grad-cache": {"video": DROP, "n_micro": 2},
+        "drop-charades": {"video": DROP, "charades": True},
+        "clipped": {"n_steps": 2, "max_grad_norm": MAX_GRAD_NORM}}
 
 
 @pytest.fixture(scope="module")
 def launched(tmp_path_factory):
     """Every case's ranks started at once; meanwhile the one-process port
-    step and JAX's on the global batch."""
+    steps and JAX's on the global batch."""
     params, batch, boxes = setup(4)
     procs = {}
     for name, (world, mesh, sp) in CASES.items():
@@ -134,31 +223,48 @@ def launched(tmp_path_factory):
         runs = [{"name": sim, "mesh": mesh, "sp": sp, "global_sim": sim,
                  **({"save": "ckpt"} if sim == "gather" else {})}
                 for sim in SIMS]
+        runs += [{"name": run, **spec} for run, spec, _ in EXTRA[name]]
         write_inputs(out, runs, params, batch, boxes)
         procs[name] = (out, start_workers("mesh", world, out))
     try:
         losses, grads, _, _ = one_process(params, batch, boxes)
         want_loss = jax_loss(params, batch)
+        refs = {}
+        for name, kw in REFS.items():
+            masks = []
+            refs[name] = (*one_process(params, batch, boxes, masks=masks,
+                                       **kw), masks)
     except BaseException:
         for _, ps in procs.values():
             for p in ps:
                 p.kill()
         raise
     np.testing.assert_allclose(losses[0], want_loss, rtol=LOSS_RTOL)
-    yield params, procs, losses, grads, want_loss
+    yield types.SimpleNamespace(params=params, procs=procs, losses=losses,
+                                grads=grads, want_loss=want_loss, refs=refs,
+                                ranks={})
     for _, ps in procs.values():
         for p in ps:
             if p.poll() is None:
                 p.kill()
 
 
+def results(launched, case):
+    """Each rank's results of ``case`` (its ranks waited for once)."""
+    if case not in launched.ranks:
+        out, ps = launched.procs[case]
+        wait_all(ps)
+        launched.ranks[case] = [torch.load(out / f"rank{r}.pt")
+                                for r in range(len(ps))]
+    return launched.ranks[case]
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_egoclip_step_on_a_mesh_is_the_global_batch_step(case, launched):
-    params, procs, losses, grads, want_loss = launched
-    world, _, sp = CASES[case]
-    out, ps = procs[case]
-    wait_all(ps)
-    ranks = [torch.load(out / f"rank{r}.pt") for r in range(world)]
+    params, losses, grads = launched.params, launched.losses, launched.grads
+    want_loss = launched.want_loss
+    out, _ = launched.procs[case]
+    ranks = results(launched, case)
     for sim in SIMS:
         for r, res in enumerate(ranks):
             got = res[sim]
@@ -173,19 +279,27 @@ def test_egoclip_step_on_a_mesh_is_the_global_batch_step(case, launched):
                 torch.testing.assert_close(v, ranks[0][sim]["params"][k],
                                            rtol=0, atol=0)
 
-    # local shapes: head-aligned qkv rows, row-parallel input dims
+    # local shapes between steps: qkv rows, row-parallel input dims; the
+    # sequence-parallel tower stores tensor parallelism's split too, and
+    # its moments with it
     D, hidden = VIDEO["embed_dim"], int(VIDEO["embed_dim"] * 4)
     local = ranks[0]["gather"]["local"]
+    moments = ranks[0]["gather"]["local_moments"]
     video = {"video_model.blocks.0.attn.qkv.weight": (3 * D // 2, D),
              "video_model.blocks.0.attn.qkv.bias": (3 * D // 2,),
+             "video_model.blocks.0.timeattn.qkv.weight": (3 * D // 2, D),
              "video_model.blocks.0.attn.proj.weight": (D, D // 2),
+             "video_model.blocks.0.timeattn.proj.weight": (D, D // 2),
              "video_model.blocks.0.attn.proj.bias": (D,),
              "video_model.blocks.1.mlp.fc1.weight": (hidden // 2, D),
+             "video_model.blocks.1.mlp.fc1.bias": (hidden // 2,),
              "video_model.blocks.1.mlp.fc2.weight": (D, hidden // 2),
-             "video_model.blocks.1.norm1.weight": (D,)}
+             "video_model.blocks.1.mlp.fc2.bias": (D,),
+             "video_model.blocks.1.norm1.weight": (D,),
+             "video_model.cls_token": (1, 1, D)}
     for k, shape in video.items():
-        whole = tuple(ranks[0]["gather"]["params"][k].shape)
-        assert local[k] == (whole if sp else shape), (k, local[k])
+        assert local[k] == shape, (k, local[k])
+        assert moments[k] == {"mu": shape, "nu": shape}, (k, moments[k])
     Dt = TEXT["dim"]
     text = {"text_model.transformer.layer.0.attention.q_lin.weight":
             (Dt // 2, Dt),
@@ -207,6 +321,99 @@ def test_egoclip_step_on_a_mesh_is_the_global_batch_step(case, launched):
         torch.testing.assert_close(v, ranks[0]["gather"]["params"][k],
                                    rtol=0, atol=0)
     assert len(opt.state) == len(list(fresh.parameters()))
+
+
+def test_sequence_parallel_resumes_a_full_checkpoint(launched):
+    """Rank 0's checkpoint of the gather step (the full state dict, one
+    process's format) resumed onto the sequence-parallel mesh: the moments
+    are cut to the slices, and the second step is one process's (the
+    moments after it too, which a wrong cut would move)."""
+    losses, _, _, moments, _ = launched.refs["two"]
+    D = VIDEO["embed_dim"]
+    qkv = "video_model.blocks.0.attn.qkv.weight"
+    for r, res in enumerate(results(launched, "model2-sp")):
+        got = res["resumed"]
+        assert got["local_moments"][qkv] == {"mu": (3 * D // 2, D),
+                                             "nu": (3 * D // 2, D)}
+        np.testing.assert_allclose(got["losses"][0], losses[1],
+                                   rtol=LOSS_RTOL, err_msg=f"rank {r}")
+        for m in ("mu", "nu"):
+            check_grads({k: v[m] for k, v in got["moments"].items()},
+                        {k: v[m] for k, v in moments.items()},
+                        f"{m} rank {r}")
+
+
+def test_sequence_parallel_gathers_the_tower_once_a_step(launched):
+    """The video tower stored split is gathered whole once a step: as many
+    all-gathers with 'block' recompute (a block's forward again in the
+    backward) and with GradCache (2 micro-batches, 2 passes each) as in a
+    plain step, and it stays whole until the update (a recompute or a
+    second pass on the slices would fail on their shapes)."""
+    for r, res in enumerate(results(launched, "model2-sp")):
+        plain = res["sp-drop"]["traffic"]
+        for run in ("sp-drop-block", "sp-grad-cache"):
+            got = res[run]["traffic"]
+            assert got["all_gather"] == plain["all_gather"] > 0, (r, run)
+            assert got["all_gather_bytes"] == plain["all_gather_bytes"]
+            assert got["reduce_scatter"] == plain["reduce_scatter"] > 0
+
+
+def test_clip_takes_the_global_norm_under_sequence_parallelism(launched):
+    """Data 2 x model 2 with sequence parallelism, the video tower stored
+    split: the norm that ``max_grad_norm`` clips by is one process's
+    global gradient norm (each slice counted once, each replicated leaf
+    once), and it clips."""
+    losses, grads, _, _, _ = launched.refs["clipped"]
+    want = torch.stack([g.norm() for g in grads.values()]).norm().item()
+    assert want > MAX_GRAD_NORM
+    for r, res in enumerate(results(launched, "data2-model2-sp")):
+        got = res["clipped"]
+        np.testing.assert_allclose(got["norms"][0], want, rtol=LOSS_RTOL,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_allclose(got["losses"], losses, rtol=LOSS_RTOL,
+                                   err_msg=f"rank {r}")
+        check_grads(got["grads"], grads, f"rank {r}")
+
+
+# the drop-path runs: (case, run, reference, the parts of a pass's global
+# batch that a rank holds a block of: the EgoClip step's positives and
+# negatives, a GradCache micro-batch's or CharadesEgo's one)
+DROP_RUNS = {"data2": ("model2-tp", "data2-drop", "drop", 2),
+             "model2-sp": ("model2-sp", "sp-drop", "drop", 2),
+             "model2-sp-block": ("model2-sp", "sp-drop-block", "drop-block",
+                                 2),
+             "model2-sp-grad-cache": ("model2-sp", "sp-grad-cache",
+                                      "drop-grad-cache", 1),
+             "data2-grad-cache": ("model2-tp", "data2-grad-cache",
+                                  "drop-grad-cache", 1),
+             "data2-charades": ("model2-tp", "data2-charades",
+                                "drop-charades", 1)}
+
+
+@pytest.mark.parametrize("name", list(DROP_RUNS))
+def test_drop_path_masks_of_the_global_batch(name, launched):
+    """Drop-path at rate 0.5 on a mesh equals one process on the global
+    batch: each rank applies the one process's masks at its rows of the
+    pass's global batch (data ranks their own rows, the model ranks of a
+    replica the same ones), so the loss and every gradient are the one
+    process's."""
+    case, run, ref, parts = DROP_RUNS[name]
+    losses, grads, _, _, want_masks = launched.refs[ref]
+    every = torch.cat(want_masks)
+    assert (every == 0).any() and (every > 0).any(), every
+    mesh = {n: spec for n, spec, _ in EXTRA[case]}[run]["mesh"]
+    n_data, n_model = mesh.get("data", 1), mesh.get("model", 1)
+    for r, res in enumerate(results(launched, case)):
+        got = res[run]
+        label = f"{name} rank {r}"
+        np.testing.assert_allclose(got["losses"][0], losses[0],
+                                   rtol=LOSS_RTOL, err_msg=label)
+        check_grads(got["grads"], grads, label)
+        assert len(got["masks"]) == len(want_masks), label
+        for mask, want in zip(got["masks"], want_masks):
+            mine = want.view(parts, n_data, -1)[:, r // n_model].flatten()
+            torch.testing.assert_close(mask, mine, rtol=0, atol=0,
+                                       msg=label)
 
 
 def test_sequence_parallel_needs_frames_and_patches_it_divides():

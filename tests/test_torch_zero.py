@@ -11,9 +11,13 @@ least 256 elements split (the tiny model has none of JAX's default
   against tensor parallelism alone, the same limits; then a checkpoint of
   the tensor-parallel run resumed onto another mesh (data 4, ZeRO 3)
   trains a third step, against the one-process port's third step: the
-  loss within 1e-5 relative, the parameters as in
-  ``test_torch_ddp.py`` (rtol 1e-5 where the gradient is not float32
-  noise, within the learning rate elsewhere);
+  loss within 1e-5 relative, the parameters within 1e-4 relative or the
+  learning rate;
+* world 4 with sequence parallelism (the video tower stored split over
+  the model group): ZeRO 1 and 3 against sequence parallelism alone over
+  2 steps, the same limits, and that run against one process (the
+  losses within 1e-5 relative, the first step's gradients within 1e-4
+  relative L2); ZeRO splits a model-split leaf's slice on its other dim;
 * stage 2 raises, with JAX's message.
 """
 
@@ -25,8 +29,13 @@ from egovlp_tpu_torch.core.mesh import MeshSpec, create_mesh
 from egovlp_tpu_torch.core.zero import apply_mesh
 from egovlp_tpu_torch.train.state import make_optimizer
 from tests.test_torch_ddp import start_workers, wait_all
-from tests.test_torch_models import port_model
-from tests.test_torch_tp_sp import one_process, setup, write_inputs
+from tests.test_torch_models import VIDEO, port_model
+from tests.test_torch_tp_sp import (
+    check_grads,
+    one_process,
+    setup,
+    write_inputs,
+)
 from tests.test_torch_train import SCHED
 
 MIN = 256
@@ -43,7 +52,12 @@ LAUNCHES = {
         {"name": "tp-zero1", "mesh": {"data": 2, "model": 2}, "zero": 1,
          "steps": 2, "min_size": MIN},
         {"name": "resumed", "mesh": {"data": 4}, "zero": 3, "steps": 1,
-         "min_size": MIN, "resume": "ckpt"}]),
+         "min_size": MIN, "resume": "ckpt"},
+        {"name": "sp", "mesh": {"data": 2, "model": 2}, "sp": True,
+         "steps": 2},
+        *({"name": f"sp-zero{z}", "mesh": {"data": 2, "model": 2},
+           "sp": True, "zero": z, "steps": 2, "min_size": MIN}
+          for z in (1, 3))]),
 }
 
 
@@ -125,6 +139,37 @@ def test_zero_composes_with_tensor_parallel_and_resumes_elsewhere(launched):
             p = res_run["params"][k]
             np.testing.assert_allclose(p.numpy(), ref.numpy(), rtol=1e-4,
                                        atol=SCHED["base_lr"], err_msg=k)
+
+
+@pytest.mark.parametrize("stage", [1, 3])
+def test_zero_composes_with_sequence_parallel(stage, launched):
+    procs, (losses, grads, _, _) = launched
+    D = VIDEO["embed_dim"]
+    for r, res in enumerate(results(procs, "data2-model2")):
+        want, got = res["sp"], res[f"sp-zero{stage}"]
+        np.testing.assert_allclose(want["losses"], losses[:2], rtol=1e-5)
+        check_grads(want["grads"], grads, f"rank {r}")
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-6)
+        check_grads(got["grads"], grads, f"stage {stage} rank {r}")
+        for k, v in want["params"].items():
+            torch.testing.assert_close(got["params"][k], v, rtol=1e-6,
+                                       atol=0, msg=k)
+        for k, v in want["moments"].items():
+            for m in ("mu", "nu"):
+                torch.testing.assert_close(got["moments"][k][m], v[m],
+                                           rtol=1e-6, atol=1e-12)
+        # the model group splits qkv's rows and fc2's columns, ZeRO the
+        # other dim of each slice: (whole, the model's slice, ZeRO's)
+        for k, whole, model_split, split in (
+                ("video_model.blocks.0.attn.qkv.weight", (3 * D, D),
+                 (3 * D // 2, D), (3 * D // 2, D // 2)),
+                ("video_model.blocks.1.mlp.fc2.weight", (D, 4 * D),
+                 (D, 2 * D), (D // 2, 2 * D))):
+            assert tuple(got["params"][k].shape) == whole, k
+            assert want["local_moments"][k]["nu"] == model_split, k
+            assert got["local_moments"][k]["nu"] == split, k
+            assert got["local"][k] == (split if stage == 3
+                                       else model_split), k
 
 
 def test_zero_stage_2_raises():

@@ -31,15 +31,21 @@ only torch and the port (no jax), joins the process group with
 * ``eval``: ``gather_eval`` / ``gather_arrays`` / ``gather_objects`` of
   this rank's rows of ``DIR/eval.pkl`` (``{'rows': [rank 0's, rank 1's],
   ...}``) and the EgoMCQ accuracies of the result, to ``DIR/rank{r}.pkl``;
-* ``mesh``: the EgoClip runs ``DIR/mesh.json`` lists, each on its own
-  (data, model) mesh (``core/mesh.py``) with sequence parallelism and ZeRO
-  as it says, from ``weights.pt`` (or, with ``resume``, the checkpoint an
+* ``mesh``: the runs ``DIR/mesh.json`` lists, each on its own (data,
+  model) mesh (``core/mesh.py``) with sequence parallelism and ZeRO as it
+  says, from ``weights.pt`` (or, with ``resume``, the checkpoint an
   earlier run wrote) on ``batch.pt`` (the global batch and its boxes),
-  this rank's data rows: ``steps`` steps; records the losses, every
-  parameter's reduced gradient of the first step gathered whole, the full
-  state after the last step (``core.zero.full_state``), the local shapes
-  of the parameters and moments, and, with ``save``, rank 0 writes the
-  checkpoint; all to ``DIR/rank{r}.pt``;
+  this rank's data rows: ``steps`` EgoClip steps (``n_micro`` GradCache
+  micro-batches when given), or CharadesEgo steps on the positives when
+  its ``step`` says ``charades``; a run's ``video`` overrides the tower's
+  config (``drop_path_rate``) and its ``max_grad_norm`` clips.  Records
+  the losses, every parameter's reduced gradient of the first step
+  gathered whole, the full state after the last step
+  (``core.zero.full_state``, the moments by parameter name), the local
+  shapes of the parameters and moments, the drop-path masks applied, the
+  global gradient norms the clip took and the collectives' calls and
+  bytes of the steps, and, with ``save``, rank 0 writes the checkpoint;
+  all to ``DIR/rank{r}.pt``;
 * ``pipeline``: ``core.pp.video_tower_pp_apply`` of the tower in
   ``DIR/pp.pt`` over a stage group of ``stages`` ranks (and a data axis
   when the world is larger), forward and the gradients of a fixed
@@ -189,7 +195,7 @@ def evaluate(rank, world, out):
         pickle.dump(res, f)
 
 
-def _tiny_model(spec):
+def _tiny_model(spec, video=None):
     from egovlp_tpu_torch.models import (
         DualEncoder,
         DualEncoderConfig,
@@ -198,15 +204,17 @@ def _tiny_model(spec):
     )
 
     return DualEncoder(DualEncoderConfig(
-        video=VideoTowerConfig(**spec["video"]),
+        video=VideoTowerConfig(**{**spec["video"], **(video or {})}),
         text=TextTowerConfig(**spec["text"]),
         projection_dim=spec.get("proj", 8)))
 
 
 def mesh(rank, world, out):
+    from egovlp_tpu_torch.core import collectives
     from egovlp_tpu_torch.core.mesh import MeshSpec, create_mesh, shard_batch
     from egovlp_tpu_torch.core.zero import apply_mesh, full_state
     from egovlp_tpu_torch.io.checkpoints import CheckpointManager
+    from egovlp_tpu_torch.models import video_tower
     from egovlp_tpu_torch.train import steps
     from egovlp_tpu_torch.train.recipes import data_parallel
     from egovlp_tpu_torch.train.state import make_optimizer
@@ -214,16 +222,29 @@ def mesh(rank, world, out):
     spec = json.loads((out / "mesh.json").read_text())
     data = torch.load(out / "batch.pt")
     boxes, flips = data["boxes"], data["flips"]
+    rows = {"n": len(boxes)}
 
     def crop_boxes(gen, n, src):  # the global batch's boxes
-        assert n == len(boxes), (n, len(boxes))
-        return boxes, flips
+        assert n == rows["n"], (n, rows["n"])
+        return boxes[:n], flips[:n]
+
+    masks, drop_path = [], video_tower.drop_path
+
+    def recorded_drop_path(xc, xp, mask):
+        masks.append(mask.clone())
+        return drop_path(xc, xp, mask)
 
     steps.sample_crop_boxes = crop_boxes
+    video_tower.drop_path = recorded_drop_path
     results = {}
     for run in spec["runs"]:
-        model = _tiny_model(spec)
-        opt, _ = make_optimizer(model, **spec["sched"])
+        charades = run.get("step") == "charades"
+        # CharadesEgo's global batch is the positives
+        rows["n"] = len(boxes) // 2 if charades else len(boxes)
+        masks.clear()
+        model = _tiny_model(spec, run.get("video"))
+        opt, _ = make_optimizer(model, **spec["sched"],
+                                max_grad_norm=run.get("max_grad_norm"))
         if run.get("resume"):
             CheckpointManager(str(out / run["resume"])).restore(model, opt)
         else:
@@ -234,7 +255,7 @@ def mesh(rank, world, out):
                                 sequence_parallel=run.get("sp", False),
                                 zero=run.get("zero", 0),
                                 min_size=run.get("min_size", 16384))
-            first = {}
+            first, norms = {}, []
             if update is None:
                 trained = data_parallel(model, torch.device("cpu"))
                 step_opt = opt.step
@@ -261,19 +282,40 @@ def mesh(rank, world, out):
                     return grads, targets
 
                 update.gradients = recorded
-            step_fn = steps.make_egoclip_train_step(
-                input_res=spec["res"], global_sim=run.get("global_sim",
-                                                          "gather"))
-            local = shard_batch(data["batch"], grid)
+                norm_sq = update.norm_sq
+
+                def recorded_norm(sq, params):
+                    total = norm_sq(sq, params)
+                    norms.append(total.sqrt().item())
+                    return total
+
+                update.norm_sq = recorded_norm
+            if charades:
+                step_fn = steps.make_charades_train_step(input_res=spec["res"])
+                batch = {k: data["batch"][k]
+                         for k in ("frames", "text_ids", "text_mask")}
+            else:
+                step_fn = steps.make_egoclip_train_step(
+                    input_res=spec["res"],
+                    global_sim=run.get("global_sim", "gather"),
+                    n_micro=run.get("n_micro", 1))
+                batch = data["batch"]
+            local = shard_batch(batch, grid)
+            collectives.traffic.clear()
             losses = [step_fn(trained, opt, local, torch.Generator()).item()
                       for _ in range(run.get("steps", 1))]
+            traffic = dict(collectives.traffic)
             sd, osd = full_state(model, opt)
             if run.get("save"):
                 CheckpointManager(str(out / run["save"])).save_epoch(
                     1, model, opt, 0.0)
+            names = [k for k, _ in model.named_parameters()]
             results[run["name"]] = {
                 "losses": losses, "grads": first, "params": sd,
-                "moments": osd["state"],
+                "moments": {k: osd["state"][i] for i, k in enumerate(names)
+                            if i in osd["state"]},
+                "masks": list(masks),
+                "norms": norms, "traffic": traffic,
                 "local": {k: tuple(p.shape) for k, p in
                           model.named_parameters()},
                 "local_moments": {k: {m: tuple(v.shape) for m, v in
