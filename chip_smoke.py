@@ -105,7 +105,22 @@ Phases, each of which passes or raises (any failure exits non-zero):
    idle share, launches a step; K3-fwd and K3-bwd kernels a step must read
    ``ln_per_step``'s, and no K3 backward autograd node may run a PyTorch
    reduction: K3-bwd sums dscale and dbias on the device; the same checks
-   on phase 9's, 10's and 11's profiles);
+   on phase 9's, 10's and 11's profiles).  The epoch function copies each
+   batch with ``data.pipeline.device_prefetch`` (pinned memory, a stream
+   of its own, a background thread); the run must be bit-equal (every
+   loss and every weight after 6 steps) to an in-line loop in this script
+   that copies each batch with ``to_device`` on the current stream, from
+   the same weights, batches and step generators.  One more epoch of the
+   prefetched loop is traced (``loop_trace``: ``torch.profiler``, its
+   Chrome trace read by ``edge_numbers``; traced again, up to
+   ``PROFILE_SESSIONS`` times, while the trace lacks a copy: a trace this
+   large can lose activity records): the trace must hold every batch copy
+   the prefetch made, and each must come from pinned memory on another
+   stream than the kernels'.  Prints the loop's host ->
+   device edge (``print_edge``, also in phases 7 and 9): the median wait
+   on the prefetch queue, the batch copies' H2D GB/s (over the copies the
+   trace holds, of the number the prefetch made), and the loop's
+   step end to step end minus the traced device busy time a step;
 6. head-split op: ``divided_attention(impl='pallas')`` forward and
    backward (``autograd.grad`` of ``sum(out * cos(out))``) at the EgoVLP
    pretraining shape in bf16, B 32, H 12, n 196, hd 64, on the space axis
@@ -144,6 +159,9 @@ Phases, each of which passes or raises (any failure exits non-zero):
    the steps after the first and its clips/s through the real Loader, the
    median time the loop waited on the Loader for a batch, and EgoMCQ
    items/s of each validation with the time it waited on its Loader;
+   the ``--resume`` run's epoch is traced once (``loop_trace``: the batch
+   copies the trace holds, at least one of those the prefetch made, each
+   pinned and on its own stream) for the host -> device edge line;
 8. DDP (``torch.distributed``, one process a GPU):
    (a) world 1 over NCCL in this process: torchrun's environment,
    ``core.dist.init_distributed``, then phase 5's weights and 3 batches
@@ -207,7 +225,11 @@ Phases, each of which passes or raises (any failure exits non-zero):
    on the 16 test videos) and ``cli.eval`` on ``configs/eval/charades.json``
    equal to it.  Every loss finite, every metric in [0, 100].  Prints the
    loop's median step end to step end and clips/s, the Loader wait, the
-   peak memory, and each validation's items/s.
+   peak memory, and each validation's items/s.  The ``--resume`` run's
+   epoch is traced once: the batch copies the trace holds (at least one
+   of those the prefetch made) must come from pinned memory, on another
+   stream than the compute stream, and overlap kernel time; then the
+   host -> device edge line.
 10. Ego4D at full width, bf16, random time attention:
    (a) OSCC and PNR at 16 frames: a synthetic hands-and-objects tree (24
    parent clips of 8 s at 30 fps, 241 JPEGs each at 456 x 256 in
@@ -1316,7 +1338,11 @@ def phase_train(ca, smi: str) -> tuple:
 
     from egovlp_tpu_torch import build
     from egovlp_tpu_torch.io.checkpoints import CheckpointManager
-    from egovlp_tpu_torch.train.recipes import make_train_epoch_fn, to_device
+    from egovlp_tpu_torch.train.recipes import (
+        make_train_epoch_fn,
+        step_generator,
+        to_device,
+    )
     from egovlp_tpu_torch.train.state import make_optimizer
     from egovlp_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -1366,17 +1392,9 @@ def phase_train(ca, smi: str) -> tuple:
 
     # ---- the main path: Trainer.train, counted --------------------------
     batches = [egoclip_batch(rng) for _ in range(steps_per_epoch)]
-    losses, times, ends = [], [], []
-
-    def timed_step(m, opt, batch, gen):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = step(m, opt, batch, gen)
-        torch.cuda.synchronize()
-        ends.append(time.perf_counter())
-        times.append((ends[-1] - t0) * 1e3)
-        losses.append(loss)
-        return loss
+    clock = SyncedClock()
+    timed_step = clock.wrap(step)
+    losses, times, ends = clock.losses, clock.times, clock.ends
 
     opt, _ = make_optimizer(model, **sched)
     tmp = tempfile.TemporaryDirectory()
@@ -1385,9 +1403,10 @@ def phase_train(ca, smi: str) -> tuple:
                       save_dir=tmp.name),
         make_train_epoch_fn([batches], timed_step, DEVICE, seed=0))
     torch.cuda.reset_peak_memory_stats()
-    ca.reset_launch_counts()
-    trainer.train(model, opt)
-    counts = dict(ca.launches)
+    with loop_probe() as probe:
+        ca.reset_launch_counts()
+        trainer.train(model, opt)
+        counts = dict(ca.launches)
     # ------------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated()
     n_steps = epochs * steps_per_epoch
@@ -1415,7 +1434,8 @@ def phase_train(ca, smi: str) -> tuple:
     print(f"train step (32 clips: 16 + 16 scene negatives), median over "
           f"steps 2-6: step function {step_ms:.2f} ms "
           f"({32 / step_ms * 1e3:.1f} clips/s); loop, end to end "
-          f"{loop_ms:.2f} ms ({32 / loop_ms * 1e3:.1f} clips/s); peak "
+          f"{loop_ms:.2f} ms ({32 / loop_ms * 1e3:.1f} clips/s); between "
+          f"steps {clock.between_ms(steps_per_epoch):.3f} ms; peak "
           f"memory of the run {peak / 2**30:.2f} GiB [{smi}]", flush=True)
 
     # ---- resume into a fresh model and optimizer: bit-exact -------------
@@ -1432,6 +1452,40 @@ def phase_train(ca, smi: str) -> tuple:
               for s in ("mu", "nu")), "resumed optimizer state differs")
     print(f"resume: {len(sd)} tensors and the optimizer state bit-equal",
           flush=True)
+
+    # ---- the prefetched loop against the in-line loop; the H2D edge ----
+    # the reference: the same weights, batches and step generators, each
+    # batch copied in line by to_device on the current stream
+    inline_model, _ = fresh_model(2)
+    inline_model.load_state_dict(initial)
+    inline_opt, _ = make_optimizer(inline_model, **sched)
+    inline = [float(step(inline_model, inline_opt, to_device(b, DEVICE),
+                         step_generator(DEVICE, 0, epoch, i)))
+              for epoch in range(1, epochs + 1)
+              for i, b in enumerate(batches)]
+    same_weights = all(torch.equal(v, inline_model.state_dict()[k])
+                       for k, v in sd.items())
+    print(f"prefetched loop vs in-line loop, {n_steps} steps: losses "
+          f"bit-equal {inline == values}, weights bit-equal {same_weights} "
+          f"(in-line: {[round(v, 5) for v in inline]})", flush=True)
+    check(inline == values and same_weights,
+          "the prefetched loop's losses or weights differ from the in-line "
+          "loop's")
+    del inline_model, inline_opt
+    # the main path's loop again, one epoch, traced: its copies' kind,
+    # stream and GB/s; traced again while the trace lacks a copy the
+    # prefetch made (a large trace can lose activity records)
+    for _ in range(PROFILE_SESSIONS):
+        trace = loop_trace(
+            "phase 5 make_train_epoch_fn",
+            lambda: make_train_epoch_fn([batches], step, DEVICE, seed=0)(
+                fresh, fresh_opt, epochs + 1,
+                logging.getLogger("chip_smoke")),
+            steps_per_epoch, smi)
+        if trace["copies"] == trace["expected_copies"]:
+            break
+    check_prefetch_trace(trace, "phase 5", overlap=False, whole=True)
+    print_edge("train (phase 5)", probe, trace, loop_ms, smi)
     # phase 8 holds the DDP runs to this run's first epoch (3 steps)
     ref = {"initial": {k: v.cpu() for k, v in initial.items()},
            "epoch1": torch.load(Path(tmp.name) / "checkpoint-epoch1.pth",
@@ -1453,6 +1507,37 @@ def phase_train(ca, smi: str) -> tuple:
     profile_steps(fresh, fresh_opt, step, batches, smi,
                   k3=ln_per_step(cfg.video.depth, cfg.text.n_layers))
     return counts, ref
+
+
+class SyncedClock:
+    """A training step wrapped between two ``torch.cuda.synchronize()``
+    calls (``wrap``), recording each step's loss, host start and end and
+    its time in ms; ``between_ms``: the median time from one step's end to
+    the next one's start within an epoch, the loop's own time (the batch's
+    copy or the wait on the prefetch queue, the step's generator, the
+    loop)."""
+
+    def __init__(self):
+        self.losses, self.starts, self.ends, self.times = [], [], [], []
+
+    def wrap(self, step):
+        import torch
+
+        def timed(m, opt, batch, gen):
+            torch.cuda.synchronize()
+            self.starts.append(time.perf_counter())
+            loss = step(m, opt, batch, gen)
+            torch.cuda.synchronize()
+            self.ends.append(time.perf_counter())
+            self.times.append((self.ends[-1] - self.starts[-1]) * 1e3)
+            self.losses.append(loss)
+            return loss
+        return timed
+
+    def between_ms(self, steps_per_epoch: int) -> float:
+        return statistics.median(
+            (self.starts[i] - self.ends[i - 1]) * 1e3
+            for i in range(1, len(self.starts)) if i % steps_per_epoch)
 
 
 def profile_steps(model, opt, step, batches, smi: str,
@@ -1692,6 +1777,195 @@ def loader_waits():
         Loader.epoch = epoch_fn
 
 
+@contextlib.contextmanager
+def loop_probe():
+    """Within the block, the training epoch function's host -> device edge
+    is timed on the host: the time the loop waited for each batch out of
+    ``device_prefetch``.  Yields ``{"waits": [seconds, ...]}`` (this
+    script's instrumentation)."""
+    from egovlp_tpu_torch.train import recipes
+
+    rec, saved = {"waits": []}, recipes.device_prefetch
+
+    def timed_prefetch(iterator, device, depth=2):
+        it = saved(iterator, device, depth)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                rec["waits"].append(time.perf_counter() - t0)
+                yield batch
+        finally:
+            it.close()
+
+    recipes.device_prefetch = timed_prefetch
+    try:
+        yield rec
+    finally:
+        recipes.device_prefetch = saved
+
+
+def merged(intervals: list) -> list:
+    """The union of ``(start, end)`` intervals, as sorted disjoint ones."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def covered(a: float, b: float, union: list) -> float:
+    """How much of ``[a, b]`` the sorted disjoint intervals ``union``
+    cover."""
+    return sum(max(0.0, min(b, y) - max(a, x)) for x, y in union
+               if x < b and y > a)
+
+
+def trace_events(run) -> tuple:
+    """``run()`` under ``torch.profiler`` (CPU and CUDA activity), its
+    activity tracing warmed first with a synchronised kernel and a 50 ms
+    pause (the first activities after a profiler starts can be missing
+    from its trace).  Returns the Chrome trace's events, ``run``'s wall
+    ms and the host arrays of at least 1 MiB that ``device_prefetch``
+    copied meanwhile (counted as it takes each batch's payload)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from egovlp_tpu_torch.data import pipeline
+
+    payload, expected = pipeline.numeric_batch, [0]
+
+    def counted(batch):
+        out = payload(batch)
+        expected[0] += sum(isinstance(v, np.ndarray) and v.nbytes >= 2**20
+                           for v in out.values())
+        return out
+
+    pipeline.numeric_batch = counted
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device=DEVICE).add_(1).item()
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        pipeline.numeric_batch = payload
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    return events, wall, expected[0]
+
+
+def loop_trace(label: str, run, n_steps: int, smi: str) -> dict:
+    """``run()``, a training loop of ``n_steps`` steps, traced
+    (``trace_events``) and read by ``edge_numbers``, with the batch copies
+    ``device_prefetch`` made (``expected_copies``), which the trace's must
+    number.  Prints and returns these numbers."""
+    events, wall, expected = trace_events(run)
+    out = {"steps": n_steps, "wall_ms": wall / n_steps,
+           "expected_copies": expected, **edge_numbers(events, n_steps)}
+    print(f"loop trace {label}: {json.dumps(out)} [{smi}]", flush=True)
+    return out
+
+
+def edge_numbers(events: list, n_steps: int) -> dict:
+    """From the Chrome trace's ``events`` of ``n_steps`` training steps:
+    the device busy time a step (the union of the kernels' spans), the
+    compute stream (the stream with the most kernel time), and the
+    batches' host -> device copies (``Memcpy HtoD`` of at least 1 MiB):
+    their number, kinds (pinned or pageable), streams, bytes, GB/s and the
+    share of their time that overlapped kernels; and the host time a step
+    this thread (the loop's) spent in ``cudaMemcpy*`` calls."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_stream = {}
+    for e in kernels:
+        s = e["args"]["stream"]
+        by_stream[s] = by_stream.get(s, 0.0) + e["dur"]
+    compute = max(by_stream, key=by_stream.get)
+    union = merged([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e["name"] and e["args"].get("bytes", 0) >= 2**20]
+    nbytes = sum(e["args"]["bytes"] for e in copies)
+    copy_us = sum(e["dur"] for e in copies)
+    host_copy = sum(e["dur"] for e in events
+                    if e.get("cat") == "cuda_runtime"
+                    and e["name"].startswith("cudaMemcpy")
+                    and e.get("tid") == threading.get_native_id())
+    return {
+        "busy_ms": sum(y - x for x, y in union) / 1e3 / n_steps,
+        "compute_stream": compute,
+        "copy_kinds": sorted({e["name"] for e in copies}),
+        "copy_streams": sorted({e["args"]["stream"] for e in copies}),
+        "copies": len(copies), "copy_mib": nbytes / 2**20,
+        "copy_ms": copy_us / 1e3,
+        "h2d_gbps": nbytes / copy_us / 1e3 if copy_us else 0.0,
+        "overlap_share": (sum(covered(e["ts"], e["ts"] + e["dur"], union)
+                              for e in copies) / copy_us if copy_us else 0.0),
+        "loop_thread_memcpy_ms": host_copy / 1e3 / n_steps,
+    }
+
+
+def check_prefetch_trace(trace: dict, label: str, overlap: bool,
+                         whole: bool) -> None:
+    """The batch copies in the trace (with ``whole``, every copy the
+    prefetch made; else at least one of them: a CLI's epoch, traced once,
+    can lose activity records) come from pinned memory on another stream
+    than the kernels' (and, with ``overlap``, ran in part while kernels
+    ran)."""
+    check(trace["expected_copies"] > 0,
+          f"{label}: the prefetch copied no batch")
+    check(trace["copies"] == trace["expected_copies"] if whole
+          else 0 < trace["copies"] <= trace["expected_copies"],
+          f"{label}: the trace holds {trace['copies']} batch copies, the "
+          f"prefetch made {trace['expected_copies']}")
+    check(trace["copy_kinds"] == ["Memcpy HtoD (Pinned -> Device)"],
+          f"{label}: batch copies {trace['copy_kinds']}, not from pinned "
+          f"memory alone")
+    check(trace["compute_stream"] not in trace["copy_streams"],
+          f"{label}: a batch copy ran on the compute stream "
+          f"{trace['compute_stream']}")
+    check(not overlap or trace["overlap_share"] > 0.0,
+          f"{label}: no batch copy overlapped a kernel")
+
+
+def print_edge(label: str, probe: dict, trace: dict, loop_ms: float,
+               smi: str) -> None:
+    """Phases 5, 7 and 9's line on the host -> device edge of the loop."""
+    wait = statistics.median(probe["waits"]) * 1e3
+    print(f"{label} host -> device edge: median wait on the prefetch queue "
+          f"{wait:.3f} ms a batch; H2D {trace['h2d_gbps']:.2f} GB/s "
+          f"({', '.join(trace['copy_kinds'])}; {trace['copies']} copies of "
+          f"{trace['copy_mib']:.1f} MiB in all in the trace, of "
+          f"{trace['expected_copies']} the prefetch made); loop {loop_ms:.2f} "
+          f"ms - device busy {trace['busy_ms']:.2f} ms = "
+          f"{loop_ms - trace['busy_ms']:.2f} ms a step [{smi}]", flush=True)
+
+
+def traced_epoch_maker(make, label: str, n_steps: int, smi: str,
+                       traces: list):
+    """``recipes.make_train_epoch_fn`` wrapped so that every epoch it makes
+    runs under ``loop_trace`` (its result appended to ``traces``)."""
+    def maker(*args, **kw):
+        train_epoch = make(*args, **kw)
+
+        def traced(model, optimizer, epoch, logger):
+            log = {}
+            traces.append(loop_trace(label, lambda: log.update(
+                train_epoch(model, optimizer, epoch, logger)), n_steps, smi))
+            return log
+        return traced
+    return maker
+
+
 def decode_stack() -> str:
     """What this machine offers the readers: OpenCV, pandas (which the port
     does not need), and the libav libraries the native decoder links."""
@@ -1807,8 +2081,9 @@ def phase_train_cli(ca, smi: str, root: Path) -> dict:
     # the time each batch took to come out of the Loader, and each
     # validation's result and time
     ends, losses, vals = [], [], []
-    make_step, evaluate = (recipes.make_egoclip_train_step,
-                           recipes.evaluate_egomcq)
+    make_step, evaluate, make_epoch = (recipes.make_egoclip_train_step,
+                                       recipes.evaluate_egomcq,
+                                       recipes.make_train_epoch_fn)
     stack = contextlib.ExitStack()
     waits = stack.enter_context(loader_waits())
 
@@ -1824,12 +2099,13 @@ def phase_train_cli(ca, smi: str, root: Path) -> dict:
     recipes.evaluate_egomcq = timed_evaluate
     try:
         # ---- the main path, counted -----------------------------------
-        ca.reset_launch_counts()
-        model, opt = cli_train.main(["--config", pt, *ov,
-                                     "-o", "trainer.epochs=2",
-                                     "-o", "trainer.max_samples_per_epoch=48"])
-        torch.cuda.synchronize()
-        counts = dict(ca.launches)
+        with loop_probe() as probe:
+            ca.reset_launch_counts()
+            model, opt = cli_train.main([
+                "--config", pt, *ov, "-o", "trainer.epochs=2",
+                "-o", "trainer.max_samples_per_epoch=48"])
+            torch.cuda.synchronize()
+            counts = dict(ca.launches)
         # ----------------------------------------------------------------
         print(f"train_cli launches: {counts}", flush=True)
         check(model.video_model.dtype == torch.bfloat16
@@ -1885,13 +2161,20 @@ def phase_train_cli(ca, smi: str, root: Path) -> dict:
         del model, opt
         torch.cuda.empty_cache()
 
-        # ---- resume at epoch 3 ------------------------------------------
+        # ---- resume at epoch 3, its loop traced ---------------------------
         ends.clear(), vals.clear()
+        traces = []
+        recipes.make_train_epoch_fn = traced_epoch_maker(
+            make_epoch, "phase 7 cli.train --resume epoch 3", 3, smi, traces)
         ca.reset_launch_counts()
         model, opt = cli_train.main(["--config", pt, *ov, "--resume", ckpt2,
                                      "-o", "trainer.epochs=3",
                                      "-o", "trainer.max_samples_per_epoch=48"])
+        recipes.make_train_epoch_fn = make_epoch
         resumed = dict(ca.launches)
+        check_prefetch_trace(traces[0], "phase 7", overlap=False,
+                             whole=False)
+        print_edge("train_cli (phase 7)", probe, traces[0], loop_ms, smi)
         (run3,) = [d for d in models.iterdir() if d != run]
         names3 = sorted(p.name for p in run3.iterdir())
         print(f"resume: launches {resumed}, run dir {names3}, optimizer "
@@ -1927,6 +2210,7 @@ def phase_train_cli(ca, smi: str, root: Path) -> dict:
     finally:
         recipes.make_egoclip_train_step = make_step
         recipes.evaluate_egomcq = evaluate
+        recipes.make_train_epoch_fn = make_epoch
         stack.close()
     return counts
 
@@ -2567,7 +2851,8 @@ def phase_finetune(ca, smi: str, root: Path) -> dict:
     ends, losses, vals, embeds = [], [], [], []
     saved = {n: getattr(recipes, n) for n in (
         "make_epic_train_step", "make_charades_train_step",
-        "evaluate_epic_mir", "embed_dataset", "evaluate_charades")}
+        "evaluate_epic_mir", "embed_dataset", "evaluate_charades",
+        "make_train_epoch_fn")}
     stack = contextlib.ExitStack()
     waits = stack.enter_context(loader_waits())
 
@@ -2588,12 +2873,13 @@ def phase_finetune(ca, smi: str, root: Path) -> dict:
     try:
         # ---- the main path, counted -----------------------------------
         torch.cuda.reset_peak_memory_stats()
-        ca.reset_launch_counts()
-        model, opt = cli_train.main(["--config", cfg["ft/epic"], *ov_epic,
-                                     "-o", "trainer.epochs=2",
-                                     "-o", "trainer.max_samples_per_epoch=48"])
-        torch.cuda.synchronize()
-        counts = dict(ca.launches)
+        with loop_probe() as probe:
+            ca.reset_launch_counts()
+            model, opt = cli_train.main([
+                "--config", cfg["ft/epic"], *ov_epic, "-o", "trainer.epochs=2",
+                "-o", "trainer.max_samples_per_epoch=48"])
+            torch.cuda.synchronize()
+            counts = dict(ca.launches)
         # ----------------------------------------------------------------
         peak = torch.cuda.max_memory_allocated()
         print(f"finetune cli.train epic launches: {counts}", flush=True)
@@ -2651,13 +2937,24 @@ def phase_finetune(ca, smi: str, root: Path) -> dict:
         del model, opt
         torch.cuda.empty_cache()
 
-        # ---- resume at epoch 3 --------------------------------------------
+        # ---- resume at epoch 3, its loop traced ----------------------------
+        # the batch copies must come from pinned memory on a stream of
+        # their own and overlap kernels
         ends.clear(), vals.clear(), embeds.clear()
+        traces = []
+        recipes.make_train_epoch_fn = traced_epoch_maker(
+            saved["make_train_epoch_fn"],
+            "phase 9 cli.train epic --resume epoch 3", 3, smi, traces)
         ca.reset_launch_counts()
         model, opt = cli_train.main(["--config", cfg["ft/epic"], *ov_epic,
                                      "--resume", ckpt2,
                                      "-o", "trainer.epochs=3",
                                      "-o", "trainer.max_samples_per_epoch=48"])
+        recipes.make_train_epoch_fn = saved["make_train_epoch_fn"]
+        check_prefetch_trace(traces[0], "phase 9", overlap=True,
+                             whole=False)
+        print_edge("finetune cli.train epic (phase 9)", probe, traces[0],
+                   loop_ms, smi)
         (run3,) = [d for d in (models / "EPIC_MIR_16f").iterdir()
                    if d != run]
         names3 = sorted(p.name for p in run3.iterdir())
@@ -3408,8 +3705,9 @@ def phase_vitl(ca, smi: str, root: Path) -> dict:
         "trainer.save_period=100", 'trainer.monitor="off"']
         for a in ("-o", o)]
     ends, losses, vals = [], [], []
-    make_step, evaluate = (recipes.make_egoclip_train_step,
-                           recipes.evaluate_egomcq)
+    make_step, evaluate, make_epoch = (recipes.make_egoclip_train_step,
+                                       recipes.evaluate_egomcq,
+                                       recipes.make_train_epoch_fn)
     stack = contextlib.ExitStack()
     waits = stack.enter_context(loader_waits())
 
@@ -4552,7 +4850,6 @@ def main() -> None:
     if sys.argv[1:2] == ["--mesh-cli-worker"]:  # a rank of phase 13 (c)
         mesh_cli_worker(Path(sys.argv[2]))
         return
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60

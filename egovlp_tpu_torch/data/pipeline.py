@@ -1,7 +1,7 @@
 """Host input pipeline: sharded sampling, threaded decode, static batches.
 
-Counterpart of ``egovlp_tpu/data/pipeline.py`` (:47-345, :377), the role
-of the reference's torch DataLoader + DistributedSampler stack:
+Counterpart of ``egovlp_tpu/data/pipeline.py`` (:47-377), the role of
+the reference's torch DataLoader + DistributedSampler stack:
 
   * per-process sharding by a (shard, num_shards) pair: each process
     decodes only its slice of the global batch (the DistributedSampler
@@ -9,18 +9,22 @@ of the reference's torch DataLoader + DistributedSampler stack:
   * a thread pool (or, with ``num_procs``, a pool of spawned processes)
     decodes items, with a bounded in-order prefetch window;
   * collation stacks fixed-shape numpy batches and tokenizes text with a
-    static ``max_length``.
+    static ``max_length``;
+  * ``device_prefetch`` (:348-374) copies the next batches to the device
+    while the current step runs: on CUDA from pinned host memory on a
+    stream of its own, in a background thread (the reference's
+    ``pin_memory`` + CUDA prefetch).  The training epoch function runs
+    every loader through it (``train/recipes.py``).
 
 The frames stay ``[B, T, pre, pre, 3]`` uint8 (the port's step takes that
-layout); the JAX package's channel fold and its mesh prefetch are TPU
-layout and mesh code, not ported.  The epoch function copies each batch
-to the device (``train/recipes.py``).
+layout); the JAX package's channel fold is TPU layout, not ported.
 """
 
 from __future__ import annotations
 
 import multiprocessing
 import queue
+import threading
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from typing import Any, Dict, Iterator, List, Optional
@@ -332,6 +336,134 @@ class Loader:
             if not lax:
                 raise
             return None
+
+
+def numeric_batch(batch: dict) -> dict:
+    """The batch without its host-side metadata: keeps numpy arrays,
+    tensors and scalars, drops strings and ``_``-prefixed keys (JAX
+    ``train/steps.py`` :37-48, ``core/mesh.py`` :139-141)."""
+    import torch
+
+    def ok(v):
+        return isinstance(v, (np.ndarray, torch.Tensor)) or np.isscalar(v)
+
+    return {k: v for k, v in batch.items()
+            if ok(v) and not isinstance(v, str) and not k.startswith("_")}
+
+
+_POLL_S = 0.05  # how often a blocked prefetch thread looks for a stop
+# the copy stream of each CUDA device, one for every prefetcher: the
+# caching allocator keeps a pool a stream, so a stream of its own for each
+# epoch's prefetcher would strand each epoch's batch memory in a new pool
+_COPY_STREAMS: dict = {}
+
+
+def device_prefetch(iterator, device, depth: int = 2):
+    """Yield each batch of ``iterator`` as ``numeric_batch``'s payload in
+    tensors on ``device``, copied by a background thread while the
+    consumer works on the batches before it.
+
+    At most ``depth`` batches are pulled from ``iterator`` ahead of the
+    one the consumer holds; batches come out in order.  A value that is
+    already a tensor on ``device`` passes through uncopied.  On CUDA each
+    host array is copied into pinned memory and sent with
+    ``non_blocking=True`` on the device's copy stream (one for all
+    prefetchers, never the consumer's), followed by an event; the
+    consumer's current stream waits on that event, and each copied tensor
+    is recorded on it (``record_stream``) so the caching allocator keeps
+    its memory until the step has read it.  On the CPU
+    the copy is ``torch.as_tensor``.  An exception from ``iterator`` or
+    from a copy is raised to the consumer at that batch.  Closing the
+    generator (a ``break``, an exception in the consumer, the end of the
+    epoch) stops the thread, which finishes the pull it is in, closes
+    ``iterator`` and ends; the generator joins it.
+    """
+    import torch
+
+    if depth < 1:
+        raise ValueError(f"depth must be at least 1, got {depth}")
+    device = torch.device(device)
+    stream = None
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device not in _COPY_STREAMS:
+            _COPY_STREAMS[device] = torch.cuda.Stream(device)
+        stream = _COPY_STREAMS[device]
+
+    def copy(batch):
+        """(tensors, the event after the copies or None, the copied keys)"""
+        out, copied = {}, []
+        if stream is None:
+            for k, v in numeric_batch(batch).items():
+                out[k] = torch.as_tensor(v).to(device)
+            return out, None, copied
+        with torch.cuda.stream(stream):
+            for k, v in numeric_batch(batch).items():
+                t = torch.as_tensor(v)
+                if t.device == device:
+                    out[k] = t
+                    continue
+                if t.device.type == "cpu":
+                    t = t.pin_memory()
+                out[k] = t.to(device, non_blocking=True)
+                copied.append(k)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return out, event, copied
+
+    slots = threading.Semaphore(depth)  # batches pulled, not yet taken
+    ready: "queue.Queue" = queue.Queue()  # ("batch" | "end" | "error", x)
+    stop = threading.Event()
+    source = iter(iterator)
+
+    def produce():
+        try:
+            if stream is not None:
+                torch.cuda.set_device(device)
+            while True:
+                while not slots.acquire(timeout=_POLL_S):
+                    if stop.is_set():
+                        return
+                if stop.is_set():
+                    return
+                try:
+                    batch = next(source)
+                except StopIteration:
+                    ready.put(("end", None))
+                    return
+                if stop.is_set():
+                    return
+                ready.put(("batch", copy(batch)))
+        except BaseException as e:  # raised to the consumer at this batch
+            ready.put(("error", e))
+        finally:
+            close = getattr(source, "close", None)
+            if close is not None:
+                close()
+
+    thread = threading.Thread(target=produce, name="device_prefetch",
+                              daemon=True)
+    thread.start()
+    try:
+        while True:
+            # the thread puts an end or an error before it ends
+            kind, item = ready.get()
+            if kind == "end":
+                return
+            if kind == "error":
+                raise item
+            tensors, event, copied = item
+            if event is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(event)
+                for k in copied:
+                    tensors[k].record_stream(current)
+            slots.release()
+            yield tensors
+    finally:
+        stop.set()
+        thread.join()
 
 
 class MultiLoader:

@@ -5,12 +5,13 @@ Counterpart of ``egovlp_tpu/train/recipes.py`` for the ``egoclip``,
 ``epic`` and ``charades`` tasks:
 
 * ``make_train_epoch_fn`` (:75-130): one optimizer step per loader per
-  batch index (the reference zips its loaders), the batches copied to the
-  device, per-loader DEVICE losses kept through the epoch (a host sync
-  only every ``log_step`` batches and once for the epoch means
-  ``loss_{i}``), and ``max_samples`` cutting the epoch.  Each step draws
-  its randomness from its own ``torch.Generator`` on the device, seeded
-  from ``(seed, epoch, step)``.
+  batch index (the reference zips its loaders), each loader's batches
+  copied to the device by ``data.pipeline.device_prefetch`` at depth 2
+  while the steps before them run (:85), per-loader DEVICE losses kept
+  through the epoch (a host sync only every ``log_step`` batches and once
+  for the epoch means ``loss_{i}``), and ``max_samples`` cutting the
+  epoch.  Each step draws its randomness from its own ``torch.Generator``
+  on the device, seeded from ``(seed, epoch, step)``.
 * ``run_task`` (:133-413): the model (seeded init, then
   ``load_pretrained``), the train Loader of every ``data_loader`` entry,
   AdamW with step-LR, the task's step and validation each epoch, run
@@ -69,6 +70,7 @@ from egovlp_tpu_torch.core.dist import (
 )
 from egovlp_tpu_torch.core.mesh import MeshSpec, create_mesh
 from egovlp_tpu_torch.core.zero import apply_mesh
+from egovlp_tpu_torch.data.pipeline import device_prefetch, numeric_batch
 from egovlp_tpu_torch.evals.charades import (
     evaluate_charades,
     load_charades_classes,
@@ -88,14 +90,15 @@ from egovlp_tpu_torch.train.steps import (
     make_epic_train_step,
     make_oscc_train_step,
     make_pnr_train_step,
-    numeric_batch,
 )
 from egovlp_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 
 def to_device(batch: dict, device: "torch.device | str"
               ) -> Dict[str, torch.Tensor]:
-    """numpy arrays (and tensors) of a collated batch -> device tensors."""
+    """numpy arrays (and tensors) of a collated batch -> device tensors,
+    copied in line on the current stream (the fixed-batch paths; the
+    epoch function prefetches)."""
     return {k: torch.as_tensor(v).to(device, non_blocking=True)
             for k, v in numeric_batch(batch).items()}
 
@@ -122,25 +125,31 @@ def make_train_epoch_fn(loaders: Sequence[Iterable], step_fn: Callable,
         t0 = time.time()
         losses = [[] for _ in loaders]
         nl, n = len(loaders), 0
-        streams = [l.epoch(epoch) if hasattr(l, "epoch") else l
+        streams = [device_prefetch(l.epoch(epoch) if hasattr(l, "epoch")
+                                   else l, device, depth=2)
                    for l in loaders]
-        for i, batch_tuple in enumerate(zip(*streams)):
-            bs = len(batch_tuple[0]["frames"])
-            if max_samples and (i + 1) * bs > max_samples:
-                break
-            for dl_idx, batch in enumerate(batch_tuple):
-                gen = step_generator(device, seed, epoch, i * nl + dl_idx)
-                loss = step_fn(model, optimizer, to_device(batch, device), gen)
-                losses[dl_idx].append(loss)
-                n += 1
-            if i % log_step == 0:
-                mlog.set_step((epoch - 1) * len(loaders[0]) + i, "train")
-                for dl_idx in range(nl):
-                    lv = float(losses[dl_idx][-1])
-                    mlog.scalar(f"loss_{dl_idx}" if nl > 1 else "loss", lv)
-                    logger.info("epoch %d step %d dl%d loss %.4f (%.2f s/it)",
-                                epoch, i, dl_idx, lv,
-                                (time.time() - t0) / max(n, 1))
+        try:
+            for i, batch_tuple in enumerate(zip(*streams)):
+                bs = len(batch_tuple[0]["frames"])
+                if max_samples and (i + 1) * bs > max_samples:
+                    break
+                for dl_idx, batch in enumerate(batch_tuple):
+                    gen = step_generator(device, seed, epoch, i * nl + dl_idx)
+                    loss = step_fn(model, optimizer, batch, gen)
+                    losses[dl_idx].append(loss)
+                    n += 1
+                if i % log_step == 0:
+                    mlog.set_step((epoch - 1) * len(loaders[0]) + i, "train")
+                    for dl_idx in range(nl):
+                        lv = float(losses[dl_idx][-1])
+                        mlog.scalar(f"loss_{dl_idx}" if nl > 1 else "loss",
+                                    lv)
+                        logger.info("epoch %d step %d dl%d loss %.4f "
+                                    "(%.2f s/it)", epoch, i, dl_idx, lv,
+                                    (time.time() - t0) / max(n, 1))
+        finally:  # stops and joins every prefetch thread
+            for s in streams:
+                s.close()
         return {f"loss_{dl_idx}": float(torch.stack(ls).mean()) if ls else 0.0
                 for dl_idx, ls in enumerate(losses)}
 

@@ -63,12 +63,13 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-import numpy as np
 import torch
 
 from egovlp_tpu_torch.core.collectives import all_gather_rows
 from egovlp_tpu_torch.core.dist import in_process_group
 from egovlp_tpu_torch.core.mesh import data_shard
+# numeric_batch is re-exported: callers of the steps import it from here
+from egovlp_tpu_torch.data.pipeline import numeric_batch  # noqa: F401
 from egovlp_tpu_torch.data.transforms import (
     eval_resize,
     resized_crop_flip,
@@ -85,16 +86,6 @@ from egovlp_tpu_torch.train.grad_cache import grad_cache_value_and_grad
 _NEG_KEYS = (("frames", "frames_neg"), ("text_ids", "text_neg_ids"),
              ("text_mask", "text_neg_mask"), ("noun_vec", "noun_vec_neg"),
              ("verb_vec", "verb_vec_neg"))
-
-
-def numeric_batch(batch: dict) -> dict:
-    """The batch without its host-side metadata: keeps numpy arrays,
-    tensors and scalars, drops strings and ``_``-prefixed keys (:37-48)."""
-    def ok(v):
-        return isinstance(v, (np.ndarray, torch.Tensor)) or np.isscalar(v)
-
-    return {k: v for k, v in batch.items()
-            if ok(v) and not isinstance(v, str) and not k.startswith("_")}
 
 
 def _global_rows(b: int, rank: int, world: int, negatives: bool,
