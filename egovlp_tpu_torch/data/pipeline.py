@@ -22,6 +22,7 @@ layout); the JAX package's channel fold is TPU layout, not ported.
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 import queue
 import threading
@@ -377,8 +378,16 @@ def device_prefetch(iterator, device, depth: int = 2):
     generator (a ``break``, an exception in the consumer, the end of the
     epoch) stops the thread, which finishes the pull it is in, closes
     ``iterator`` and ends; the generator joins it.
+
+    It records the spans (``io/logging.span``) ``prefetch.wait``, the
+    consumer's wait for the next batch, and ``prefetch.copy``, the
+    thread's pinning and copy of one batch (a device span, its events on
+    the copy stream; args: ``bytes``), and counts ``prefetch.batches`` and
+    ``prefetch.bytes``, the bytes of the payload's values it copies.
     """
     import torch
+
+    from egovlp_tpu_torch.io.logging import count, span
 
     if depth < 1:
         raise ValueError(f"depth must be at least 1, got {depth}")
@@ -393,14 +402,16 @@ def device_prefetch(iterator, device, depth: int = 2):
 
     def copy(batch):
         """(tensors, the event after the copies or None, the copied keys)"""
-        out, copied = {}, []
-        if stream is None:
-            for k, v in numeric_batch(batch).items():
-                out[k] = torch.as_tensor(v).to(device)
-            return out, None, copied
-        with torch.cuda.stream(stream):
+        out, copied, event = {}, [], None
+        on = (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext())
+        with on, span("prefetch.copy", device=True) as s:
             for k, v in numeric_batch(batch).items():
                 t = torch.as_tensor(v)
+                if stream is None:
+                    out[k] = t.to(device)
+                    copied.append(k)
+                    continue
                 if t.device == device:
                     out[k] = t
                     continue
@@ -408,8 +419,13 @@ def device_prefetch(iterator, device, depth: int = 2):
                     t = t.pin_memory()
                 out[k] = t.to(device, non_blocking=True)
                 copied.append(k)
-            event = torch.cuda.Event()
-            event.record(stream)
+            if stream is not None:
+                event = torch.cuda.Event()
+                event.record(stream)
+            nbytes = sum(out[k].nbytes for k in copied)
+            s.note(bytes=nbytes)
+        count("prefetch.batches")
+        count("prefetch.bytes", nbytes)
         return out, event, copied
 
     slots = threading.Semaphore(depth)  # batches pulled, not yet taken
@@ -448,7 +464,8 @@ def device_prefetch(iterator, device, depth: int = 2):
     try:
         while True:
             # the thread puts an end or an error before it ends
-            kind, item = ready.get()
+            with span("prefetch.wait"):
+                kind, item = ready.get()
             if kind == "end":
                 return
             if kind == "error":

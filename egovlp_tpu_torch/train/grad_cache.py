@@ -21,14 +21,82 @@ EgoClip step draws a pass's masks for its global micro-batch
 (``train/steps.py``).  Under
 ``DistributedDataParallel`` pass 2 runs every micro-batch but the last in
 the wrapper's ``no_sync()``, so the gradients are all-reduced once.
+``grad_cache_passes`` gives the two halves apart (pass 1 and the loss;
+the loss's gradient and pass 2), so that a step can time them as its
+forward and its backward.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+
+
+class Pending:
+    """Pass 1's result: the micro-batches, the generator with its state
+    before each and after the last, the full batch's embeddings and the
+    loss on them (``loss``)."""
+
+    __slots__ = ("micro", "generator", "states", "end", "full", "rows",
+                 "loss")
+
+
+def grad_cache_passes(embed_fn: Callable[[Dict[str, torch.Tensor]],
+                                         Sequence[torch.Tensor]],
+                      loss_fn: Callable[..., torch.Tensor],
+                      n_micro: int) -> Tuple[Callable, Callable]:
+    """``(first, second)``: ``first(batch, generator=None) -> Pending``
+    embeds every micro-batch under ``no_grad`` and takes the loss on the
+    full batch; ``second(pending, no_sync=None) -> loss`` (detached) takes
+    the loss's gradient and runs pass 2, adding the parameters' gradients
+    into their ``.grad``.  The arguments are
+    ``grad_cache_value_and_grad``'s, which is the two in turn."""
+    if n_micro < 1:
+        raise ValueError(f"n_micro must be >= 1, got {n_micro}")
+
+    def split(batch):
+        for k, x in batch.items():
+            if x.shape[0] % n_micro:
+                raise ValueError(f"batch axis {x.shape[0]} of {k!r} not "
+                                 f"divisible by n_micro={n_micro}")
+        parts = {k: x.chunk(n_micro) for k, x in batch.items()}
+        return [{k: p[j] for k, p in parts.items()} for j in range(n_micro)]
+
+    def first(batch: Dict[str, torch.Tensor],
+              generator: Optional[torch.Generator] = None) -> Pending:
+        out = Pending()
+        out.micro, out.generator = split(batch), generator
+        out.states, embs = [], []
+        with torch.no_grad():
+            for mb in out.micro:
+                out.states.append(None if generator is None
+                                  else generator.get_state())
+                embs.append(tuple(embed_fn(mb)))
+        out.end = None if generator is None else generator.get_state()
+        out.full = [torch.cat(parts).requires_grad_() for parts in zip(*embs)]
+        out.rows = [len(e[0]) for e in embs]
+        with torch.enable_grad():
+            out.loss = loss_fn(*out.full)
+        return out
+
+    def second(p: Pending, no_sync: Optional[Callable] = None
+               ) -> torch.Tensor:
+        d_full = torch.autograd.grad(p.loss, p.full)
+        d_micro = list(zip(*(g.split(p.rows) for g in d_full)))
+        for j, (mb, cts) in enumerate(zip(p.micro, d_micro)):
+            if p.generator is not None:
+                p.generator.set_state(p.states[j])
+            last = j == n_micro - 1
+            with (contextlib.nullcontext() if last or no_sync is None
+                  else no_sync()):
+                torch.autograd.backward(tuple(embed_fn(mb)), cts)
+        if p.generator is not None:
+            p.generator.set_state(p.end)
+        return p.loss.detach()
+
+    return first, second
 
 
 def grad_cache_value_and_grad(embed_fn: Callable[[Dict[str, torch.Tensor]],
@@ -45,43 +113,11 @@ def grad_cache_value_and_grad(embed_fn: Callable[[Dict[str, torch.Tensor]],
     ``n_micro`` (else ``ValueError``).  ``generator``: the one
     ``embed_fn`` draws from, replayed in pass 2.  ``no_sync``: a
     ``DistributedDataParallel`` wrapper's ``no_sync``."""
-    if n_micro < 1:
-        raise ValueError(f"n_micro must be >= 1, got {n_micro}")
-
-    def split(batch):
-        for k, x in batch.items():
-            if x.shape[0] % n_micro:
-                raise ValueError(f"batch axis {x.shape[0]} of {k!r} not "
-                                 f"divisible by n_micro={n_micro}")
-        parts = {k: x.chunk(n_micro) for k, x in batch.items()}
-        return [{k: p[j] for k, p in parts.items()} for j in range(n_micro)]
+    first, second = grad_cache_passes(embed_fn, loss_fn, n_micro)
 
     def vg(batch: Dict[str, torch.Tensor],
            generator: Optional[torch.Generator] = None,
            no_sync: Optional[Callable] = None) -> torch.Tensor:
-        micro = split(batch)
-        states, embs = [], []
-        with torch.no_grad():
-            for mb in micro:
-                states.append(None if generator is None
-                              else generator.get_state())
-                embs.append(tuple(embed_fn(mb)))
-        end = None if generator is None else generator.get_state()
-        full = [torch.cat(parts).requires_grad_() for parts in zip(*embs)]
-        with torch.enable_grad():
-            loss = loss_fn(*full)
-        d_full = torch.autograd.grad(loss, full)
-        rows = [len(e[0]) for e in embs]
-        d_micro = list(zip(*(g.split(rows) for g in d_full)))
-        for j, (mb, cts) in enumerate(zip(micro, d_micro)):
-            if generator is not None:
-                generator.set_state(states[j])
-            last = j == n_micro - 1
-            with (contextlib.nullcontext() if last or no_sync is None
-                  else no_sync()):
-                torch.autograd.backward(tuple(embed_fn(mb)), cts)
-        if generator is not None:
-            generator.set_state(end)
-        return loss.detach()
+        return second(first(batch, generator), no_sync)
 
     return vg

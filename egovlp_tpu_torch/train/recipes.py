@@ -79,7 +79,7 @@ from egovlp_tpu_torch.evals.egomcq import evaluate_egomcq
 from egovlp_tpu_torch.evals.epic_mir import embed_dataset, evaluate_epic_mir
 from egovlp_tpu_torch.evals.oscc_pnr import evaluate_oscc, evaluate_pnr
 from egovlp_tpu_torch.io.config import Config
-from egovlp_tpu_torch.io.logging import MetricLogger, setup_logging
+from egovlp_tpu_torch.io.logging import MetricLogger, setup_logging, span
 from egovlp_tpu_torch.io.visualizer import build_visualizer
 from egovlp_tpu_torch.metrics.mir import load_epic_annotations
 from egovlp_tpu_torch.models.dual_encoder import sim_matrix
@@ -118,10 +118,16 @@ def make_train_epoch_fn(loaders: Sequence[Iterable], step_fn: Callable,
     A loader is a ``Loader`` (its ``epoch(epoch)`` batches) or any iterable
     of collated numpy batches.  Every ``log_step`` batches the losses go to
     ``logger`` and to ``mlog`` (tag ``train/loss``, or ``train/loss_{i}``
-    with several loaders, at step ``(epoch - 1) * len(loaders[0]) + i``)."""
+    with several loaders, at step ``(epoch - 1) * len(loaders[0]) + i``).
+    The epoch records the spans ``loop.epoch`` (args: ``epoch``) and
+    ``loop.step`` around each call of ``step_fn`` (``io/logging.span``)."""
     mlog = mlog or MetricLogger(None, enabled=False)
 
     def train_epoch(model, optimizer, epoch, logger):
+        with span("loop.epoch", args={"epoch": epoch}):
+            return run_epoch(model, optimizer, epoch, logger)
+
+    def run_epoch(model, optimizer, epoch, logger):
         t0 = time.time()
         losses = [[] for _ in loaders]
         nl, n = len(loaders), 0
@@ -135,7 +141,8 @@ def make_train_epoch_fn(loaders: Sequence[Iterable], step_fn: Callable,
                     break
                 for dl_idx, batch in enumerate(batch_tuple):
                     gen = step_generator(device, seed, epoch, i * nl + dl_idx)
-                    loss = step_fn(model, optimizer, batch, gen)
+                    with span("loop.step"):
+                        loss = step_fn(model, optimizer, batch, gen)
                     losses[dl_idx].append(loss)
                     n += 1
                 if i % log_step == 0:

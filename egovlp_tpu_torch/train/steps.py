@@ -57,6 +57,15 @@ data replica takes the same rows and crop boxes, and the gathers and the
 ring run over the data group.  The evaluation steps (:303-328)
 embed collated batches with the eval transform: text and video, video
 alone, text alone.
+
+Every training step records three device spans (``io/logging.span``,
+which records only under a profiler or inside ``recording()``):
+``step.forward`` from the step's entry to its loss (the negatives'
+concatenation, the crop boxes, the transform, which is its child span
+``step.inputs``, both towers and the loss), ``step.backward``
+(``zero_grad``, which launches nothing, then the backward) and
+``step.optimizer`` (the optimizer's step).  With GradCache, pass 1 and
+the loss are the forward, the loss's gradient and pass 2 the backward.
 """
 
 from __future__ import annotations
@@ -75,13 +84,14 @@ from egovlp_tpu_torch.data.transforms import (
     resized_crop_flip,
     sample_crop_boxes,
 )
+from egovlp_tpu_torch.io.logging import span
 from egovlp_tpu_torch.models.dual_encoder import sim_matrix
 from egovlp_tpu_torch.models.video_tower import GlobalRows
 from egovlp_tpu_torch.objectives.classification import cross_entropy, nll
 from egovlp_tpu_torch.objectives.contrastive import egonce, info_nce
 from egovlp_tpu_torch.objectives.ranking import adaptive_max_margin, max_margin
 from egovlp_tpu_torch.objectives.ring import egoclip_ring_loss
-from egovlp_tpu_torch.train.grad_cache import grad_cache_value_and_grad
+from egovlp_tpu_torch.train.grad_cache import grad_cache_passes
 
 _NEG_KEYS = (("frames", "frames_neg"), ("text_ids", "text_neg_ids"),
              ("text_mask", "text_neg_mask"), ("noun_vec", "noun_vec_neg"),
@@ -97,11 +107,28 @@ def _global_rows(b: int, rank: int, world: int, negatives: bool,
     return torch.cat([pos, world * b + pos]) if negatives else pos
 
 
-def _update(optimizer, loss: torch.Tensor) -> torch.Tensor:
-    """Backward and the optimizer step; the loss, detached."""
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    optimizer.step()
+def _forward():
+    """The span of a step's forward, from its entry to its loss."""
+    return span("step.forward", device=True)
+
+
+def _transform(frames, boxes, flips, input_res: int) -> torch.Tensor:
+    with span("step.inputs", device=True):
+        return resized_crop_flip(frames, boxes, flips, out_size=input_res)
+
+
+def _update(optimizer, loss: torch.Tensor, backward=None) -> torch.Tensor:
+    """Backward and the optimizer step; the loss, detached.  ``backward``:
+    what fills the gradients instead of ``loss.backward()`` (it returns the
+    loss)."""
+    with span("step.backward", device=True):
+        optimizer.zero_grad(set_to_none=True)
+        if backward is None:
+            loss.backward()
+        else:
+            loss = backward()
+    with span("step.optimizer", device=True):
+        optimizer.step()
     return loss.detach()
 
 
@@ -127,6 +154,12 @@ def make_egoclip_train_step(loss_type: str = "EgoNCE", input_res: int = 224,
 
     def step(model, optimizer, batch: Dict[str, torch.Tensor],
              generator: torch.Generator) -> torch.Tensor:
+        with _forward():
+            loss, backward = forward(model, batch, generator)
+        return _update(optimizer, loss, backward)
+
+    def forward(model, batch, generator):
+        """(the loss, and GradCache's pass 2 or None)"""
         rank, world = data_shard()
         parts = {k: batch[k] for k, _ in _NEG_KEYS}
         negatives = "frames_neg" in batch
@@ -143,7 +176,7 @@ def make_egoclip_train_step(loss_type: str = "EgoNCE", input_res: int = 224,
             index = _global_rows(b, rank, world, negatives, boxes.device)
             boxes, flips = boxes[index], flips[index]
             rows = GlobalRows(world * frames.shape[0], index)
-        video = resized_crop_flip(frames, boxes, flips, out_size=input_res)
+        video = _transform(frames, boxes, flips, input_res)
         verb_vec, noun_vec = parts["verb_vec"], parts["noun_vec"]
         model.train()
 
@@ -172,7 +205,7 @@ def make_egoclip_train_step(loss_type: str = "EgoNCE", input_res: int = 224,
         if n_micro == 1:
             t, v = model(video, parts["text_ids"], parts["text_mask"],
                          generator=generator, rows=rows)
-            return _update(optimizer, loss_of(t, v))
+            return loss_of(t, v), None
 
         def embed(mb):
             n = mb["video"].shape[0]
@@ -182,13 +215,11 @@ def make_egoclip_train_step(loss_type: str = "EgoNCE", input_res: int = 224,
             return model(mb["video"], mb["ids"], mb["mask"],
                          generator=generator, rows=mb_rows)
 
-        optimizer.zero_grad(set_to_none=True)
-        loss = grad_cache_value_and_grad(embed, loss_of, n_micro)(
-            {"video": video, "ids": parts["text_ids"],
-             "mask": parts["text_mask"]},
-            generator, getattr(model, "no_sync", None))
-        optimizer.step()
-        return loss
+        first, second = grad_cache_passes(embed, loss_of, n_micro)
+        pending = first({"video": video, "ids": parts["text_ids"],
+                         "mask": parts["text_mask"]}, generator)
+        return pending.loss, lambda: second(pending,
+                                            getattr(model, "no_sync", None))
 
     return step
 
@@ -209,7 +240,7 @@ def _train_video(model, frames: torch.Tensor, generator: torch.Generator,
         boxes, flips = boxes[index], flips[index]
         rows = GlobalRows(world * b, index)
     model.train()
-    return resized_crop_flip(frames, boxes, flips, out_size=input_res), rows
+    return _transform(frames, boxes, flips, input_res), rows
 
 
 def _finetune_forward(model, batch: Dict[str, torch.Tensor],
@@ -248,15 +279,16 @@ def make_epic_train_step(loss_type: str = "MaxMarginRankingLoss",
 
     def step(model, optimizer, batch: Dict[str, torch.Tensor],
              generator: torch.Generator) -> torch.Tensor:
-        if adaptive:
-            t, v, relation = _finetune_forward(model, batch, generator,
-                                               input_res, ("relation",))
-            loss = adaptive_max_margin(sim_matrix(t, v), relation,
-                                       margin=margin, fix_norm=fix_norm)
-        else:
-            t, v = _finetune_forward(model, batch, generator, input_res)
-            loss = max_margin(sim_matrix(t, v), margin=margin,
-                              fix_norm=fix_norm)
+        with _forward():
+            if adaptive:
+                t, v, relation = _finetune_forward(model, batch, generator,
+                                                   input_res, ("relation",))
+                loss = adaptive_max_margin(sim_matrix(t, v), relation,
+                                           margin=margin, fix_norm=fix_norm)
+            else:
+                t, v = _finetune_forward(model, batch, generator, input_res)
+                loss = max_margin(sim_matrix(t, v), margin=margin,
+                                  fix_norm=fix_norm)
         return _update(optimizer, loss)
 
     return step
@@ -269,8 +301,10 @@ def make_charades_train_step(input_res: int = 224,
     pairs."""
     def step(model, optimizer, batch: Dict[str, torch.Tensor],
              generator: torch.Generator) -> torch.Tensor:
-        t, v = _finetune_forward(model, batch, generator, input_res)
-        return _update(optimizer, info_nce(sim_matrix(t, v), temperature))
+        with _forward():
+            t, v = _finetune_forward(model, batch, generator, input_res)
+            loss = info_nce(sim_matrix(t, v), temperature)
+        return _update(optimizer, loss)
 
     return step
 
@@ -281,9 +315,11 @@ def make_oscc_train_step(input_res: int = 224) -> Callable:
     ``state``, over the global batch."""
     def step(model, optimizer, batch: Dict[str, torch.Tensor],
              generator: torch.Generator) -> torch.Tensor:
-        logits, state = _video_only_forward(model, batch, generator,
-                                            input_res, ("state",))
-        return _update(optimizer, cross_entropy(logits, state))
+        with _forward():
+            logits, state = _video_only_forward(model, batch, generator,
+                                                input_res, ("state",))
+            loss = cross_entropy(logits, state)
+        return _update(optimizer, loss)
 
     return step
 
@@ -295,11 +331,12 @@ def make_pnr_train_step(input_res: int = 224) -> Callable:
     mask) / max(sum(mask), 1)`` over the global batch."""
     def step(model, optimizer, batch: Dict[str, torch.Tensor],
              generator: torch.Generator) -> torch.Tensor:
-        logits, labels, state = _video_only_forward(
-            model, batch, generator, input_res, ("labels", "state"))
-        mask = state.float()
-        loss = (nll(logits, labels.argmax(dim=1)) * mask).sum() / \
-            mask.sum().clamp_min(1.0)
+        with _forward():
+            logits, labels, state = _video_only_forward(
+                model, batch, generator, input_res, ("labels", "state"))
+            mask = state.float()
+            loss = (nll(logits, labels.argmax(dim=1)) * mask).sum() / \
+                mask.sum().clamp_min(1.0)
         return _update(optimizer, loss)
 
     return step
