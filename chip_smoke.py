@@ -75,6 +75,17 @@ Phases, each of which passes or raises (any failure exits non-zero):
    library (``F.layer_norm`` and its autograd backward; a pair's two
    calls) times and the bound (in us) at bf16, each pair beside its patch
    rows alone;
+3d. K7, the MLP's bias add + exact GELU kernels (``phase_bias_gelu``):
+   the wrappers on the card at ``MLP_CASES``, the benchmark cells' MLP
+   calls (ViT-L's ``[75264, 4096]``, ViT-B's ``[75264, 3072]``, the
+   16-frame fine-tune's ``[50176, 3072]``, the text tower's and the CLS
+   rows), bf16 and float32, and a tensor-parallel half with no bias,
+   against their plain twins on the same inputs: the forward bit for bit,
+   dy within one rounding step of the dtype, the bias gradient within two;
+   two K7-bwd launches give the same bits; K7-bwd's chunks of rows; then at
+   each bf16 shape kernel, device, plain and library times (``F.gelu(y +
+   b)`` and its autograd backward minus its forward) and the byte bound (2
+   Hb forward, 3 Hb backward; Hb the rows x width x 2 bytes);
 4. serving slice: the full-width dual encoder of ``configs/eval/egomcq.json``
    in bf16 with seeded random weights (time attention initialised
    non-zero, so the time kernel sees real inputs) behind ``serve()``:
@@ -92,7 +103,10 @@ Phases, each of which passes or raises (any failure exits non-zero):
    finite losses, the kernel launches of every step (12 of each, but 11 of
    K1-bwd: the last block's space-attention patch outputs reach no loss;
    50 of K3-fwd and 50 of K3-bwd, ``ln_per_step``: one a CLS + patch pair,
-   the last block's norm2 backward over its CLS rows alone),
+   the last block's norm2 backward over its CLS rows alone; 30 of K7-fwd
+   and 29 of K7-bwd, ``mlp_per_step``: each block's MLP on its CLS and its
+   patch part, each text layer's FFN, the last block's patch MLP with no
+   backward),
    the first step's loss (within 2e-2) and gradients (cosine >= 0.999 over
    all parameters, >= 0.99 for every block's ``attn.qkv.weight`` and
    ``timeattn.qkv.weight``) against the plain-attention model on the same
@@ -367,7 +381,7 @@ Phases, each of which passes or raises (any failure exits non-zero):
    accuracies; and ``--resume`` of it onto ``mesh.model=1`` trains epoch 2
    (6 steps of 16 + 16) to optimizer step 9.
 
-Phases 3, 3b and 3c also give the library call's own device time
+Phases 3, 3b, 3c and 3d also give the library call's own device time
 (``torch.profiler`` over all its kernels: ``library_device_ms``).  The
 last four lines are a JSON object of phase 12's numbers, the
 ``nvidia-smi`` line, a JSON object with one entry per kernel, and
@@ -379,6 +393,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import functools
 import io
 import json
 import logging
@@ -414,6 +429,11 @@ HS_KERNELS = {
 # the TPU: the forward, and its backward _ln_bwd)
 LN_KERNELS = {"layer_norm_fwd": "egovlp_tpu/kernels/fused_ln.py:41",
               "layer_norm_bwd": "egovlp_tpu/kernels/fused_ln.py:67"}
+# K7, the MLP's bias add + exact GELU kernels: no TPU kernel (the JAX
+# package's Mlp / FFN call nn.gelu, plain jnp that XLA fuses with the bias)
+MLP_KERNELS = {
+    "bias_gelu_fwd": "none: egovlp_tpu/models/video_tower.py:132 nn.gelu",
+    "bias_gelu_bwd": "none: the autodiff of that nn.gelu"}
 # the bf16 kernels that run on the tensor cores, and the time their scalar
 # CUDA-core bodies took at the timed shapes, by this script's median_ms
 # (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W), printed beside the
@@ -432,7 +452,8 @@ BODIES = {"space_attention_fwd": "attention_fwd_mma.cuh",
           "space_attention_bwd": "attention_bwd_mma.cuh",
           "grouped_attention_bwd": "attention_bwd_mma.cuh",
           **dict.fromkeys(STREAMING, "time_attention_stream.cuh"),
-          **dict.fromkeys(LN_KERNELS, "layer_norm.cuh")}
+          **dict.fromkeys(LN_KERNELS, "layer_norm.cuh"),
+          **dict.fromkeys(MLP_KERNELS, "bias_gelu.cuh")}
 REDESIGNED = {**TENSOR_CORE, **STREAMING}
 FWD = ("space_attention_fwd", "time_attention_fwd")
 BWD = ("space_attention_bwd", "time_attention_bwd")
@@ -462,6 +483,15 @@ LN_CASES = ((25088, 32, VITL_DIM), (25088, 32, DIM), (50176, 16, DIM),
             # phase 13 (a): a sequence-parallel rank's pairs (64 clips, half
             # the patches) and a tensor-parallel rank's (every patch)
             (25088, 64, VITL_DIM), (50176, 64, VITL_DIM))
+# K7's [rows, width] (bf16 y, float32 bias), one MLP call of the benchmark
+# cells at 48 + 48 clips a card (96 x 4 x 196 patch rows; the 16-frame
+# fine-tune's 16 x 16 x 196): ViT-L's and ViT-B's patch rows, the
+# fine-tune's, the text tower's 96 x 30 and 16 x 30 tokens, and a block's
+# CLS rows at both widths; then, checked but not timed, a tensor-parallel
+# half with no bias (its layer added it)
+MLP_CASES = ((75264, 4096), (75264, 3072), (50176, 3072), (2880, 3072),
+             (480, 3072), (96, 4096), (96, 3072))
+MLP_TP_CASE = (75264, 2048)
 # NVIDIA H100 SXM data sheet: HBM bytes/s, dense bf16 tensor FLOP/s and
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -482,9 +512,10 @@ def check(cond: bool, msg: str) -> None:
 
 
 def attention_counts(counts: dict) -> dict:
-    """The attention kernels' launches of ``counts`` (K3 left out: its
-    launches a pass depend on the towers, see ``ln_per_step``)."""
-    return {k: v for k, v in counts.items() if k not in LN_KERNELS}
+    """The attention kernels' launches of ``counts`` (K3 and K7 left out:
+    their launches a pass depend on the towers, see ``ln_per_step``)."""
+    return {k: v for k, v in counts.items()
+            if k not in LN_KERNELS and k not in MLP_KERNELS}
 
 
 def ln_per_step(depth: int, text_layers: int, remat: str = "none",
@@ -502,6 +533,21 @@ def ln_per_step(depth: int, text_layers: int, remat: str = "none",
     if remat == "block":
         fwd += n_micro * 3 * depth
     return {"layer_norm_fwd": fwd, "layer_norm_bwd": n_micro * one}
+
+
+def mlp_per_step(depth: int, text_layers: int, remat: str = "none",
+                 n_micro: int = 1) -> dict:
+    """K7 launches of one EgoClip training step: a video tower pass calls
+    each block's MLP twice (the CLS part and the patch part), a text tower
+    pass each layer's FFN once; the backward one fewer (the last block's
+    patch MLP reaches no loss).  GradCache embeds every micro-batch twice;
+    'block' recompute runs each block's two MLP calls again, 'mlp'
+    recompute each MLP call that gets a gradient (not that last one)."""
+    one = 2 * depth + text_layers
+    fwd = n_micro * one * (2 if n_micro > 1 else 1)
+    if remat in ("block", "mlp"):
+        fwd += n_micro * (2 * depth - (remat == "mlp"))
+    return {"bias_gelu_fwd": fwd, "bias_gelu_bwd": n_micro * (one - 1)}
 
 
 # K3 launches of one 12-block video tower pass and of one 6-layer text
@@ -1148,6 +1194,136 @@ def phase_layer_norm(smi: str) -> dict:
     return out
 
 
+def mlp_bound_ms(name: str, rows: int, width: int, itemsize: int = 2):
+    """The least time of K7's work on ``[rows, width]`` on an H100, in ms:
+    the forward reads y and writes g (2 Hb), the backward reads dg and y
+    and writes dy (3 Hb; the bias and its float32 column sums are under
+    0.3% of it), over HBM bandwidth.  Its float32 operations (~10 an
+    element forward, ~15 backward, with the bf16 tables) take under a
+    fifth of that at the float32 rate."""
+    hb = rows * width * itemsize
+    return (2 if name.endswith("fwd") else 3) * hb / PEAK_BYTES * 1e3
+
+
+def phase_bias_gelu(smi: str) -> dict:
+    """Phase 3d: K7-fwd and K7-bwd through their wrappers against their
+    plain twins (``bias_gelu_{fwd,bwd}_plain``, the PyTorch ops the MLP ran
+    before K7) on the same inputs at ``MLP_CASES``, float32 and bf16, and
+    at ``MLP_TP_CASE`` with no bias: g bit for bit; dy within one rounding
+    step of the dtype (the float32 slope's exp may differ in its last bit
+    between the kernel and PyTorch's); the bias gradient, another float32
+    summation order rounded once more, within two steps (or 1e-3); two
+    K7-bwd launches give the same bits; K7-bwd's chunks of rows.  Then at
+    each bf16 case kernel (CUDA events), device (``torch.profiler``),
+    plain and library times (``F.gelu(y + b)`` and ``autograd.grad`` of it
+    minus its forward) and the byte bound (``mlp_bound_ms``).  Returns the
+    rows, the first case's at the top."""
+    import torch
+    import torch.nn.functional as F
+
+    from egovlp_tpu_torch.kernels import bias_gelu as bg
+
+    def inputs(rows, width, dtype, seed, bias=True):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        y = (torch.randn(rows, width, device="cuda", generator=g) * 2
+             ).to(dtype)
+        dg = torch.randn(rows, width, device="cuda", generator=g).to(dtype)
+        b = torch.randn(width, device="cuda", generator=g) if bias else None
+        return y, b, dg
+
+    def check_k7(y, b, dg, label):
+        """``(max |g - twin|, max |dy - twin|)``, or raise."""
+        dt = y.dtype
+        g, (dy, db) = bg.bias_gelu_fwd(y, b), bg.bias_gelu_bwd(dg, y, b)
+        again = bg.bias_gelu_bwd(dg, y, b)
+        torch.cuda.synchronize()
+        wg = bg.bias_gelu_fwd_plain(y, b)
+        wdy, wdb = bg.bias_gelu_bwd_plain(dg, y, b)
+        step = 2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -22
+        exact = torch.equal(g, wg)
+        d_dy = (dy.float() - wdy.float()).abs()
+        dy_ok = bool((d_dy <= step * wdy.float().abs() + 1e-30).all())
+        db_err = 0.0 if b is None else (
+            (db - wdb).abs() / (2 * step * wdb.abs()).clamp_min(1e-3)
+        ).max().item()
+        same = torch.equal(dy, again[0]) and (
+            b is None or torch.equal(db, again[1]))
+        err_g = (g.float() - wg.float()).abs().max().item()
+        err_dy = d_dy.max().item()
+        print(f"check bias_gelu {str(dt)[6:]} {label}"
+              f"{'' if b is not None else ' (no bias)'}: g "
+              f"{'bit for bit' if exact else f'DIFFERS (max abs {err_g:.2e})'}"
+              f"; dy max abs {err_dy:.2e} ({'within' if dy_ok else 'BEYOND'} "
+              f"one step); dbias at {db_err:.2f} of two steps; two K7-bwd "
+              f"launches {'give the same bits' if same else 'DIFFER'}",
+              flush=True)
+        check(exact, "K7-fwd differs from the PyTorch ops")
+        check(dy_ok and db_err <= 1, "K7-bwd disagrees with its plain twin")
+        check(same, "bias_gelu_bwd is not deterministic")
+        return err_g, err_dy
+
+    for rows, width in MLP_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_k7(*inputs(rows, width, dtype, rows + width),
+                     f"[{rows}, {width}]")
+    check_k7(*inputs(*MLP_TP_CASE, torch.bfloat16, 1, bias=False),
+             f"[{MLP_TP_CASE[0]}, {MLP_TP_CASE[1]}]")
+    out = {}
+    for rows, width in MLP_CASES:
+        label = f"[{rows}, {width}]"
+        y, b, dg = inputs(rows, width, torch.bfloat16, width)
+        err_f, err_b = check_k7(y, b, dg, f"{label} (timed inputs)")
+        chunks = bg._bwd_chunks(rows, width, torch.bfloat16, 0)
+        print(f"check bias_gelu_bwd bf16 {label}: {chunks} chunks of rows x "
+              f"{-(-width // 256)} slabs", flush=True)
+        yl = y.clone().requires_grad_()
+        bl = b.clone().requires_grad_()
+
+        def lib_fwd():
+            return F.gelu(y + b.to(y.dtype))
+
+        def lib_grad():
+            return torch.autograd.grad(F.gelu(yl + bl.to(yl.dtype)),
+                                       (yl, bl), dg)
+
+        lib_f, lib_f_device = median_ms(lib_fwd), device_ms(lib_fwd,
+                                                             library=True)
+        lib_b = median_ms(lib_grad) - lib_f
+        lib_b_device = device_ms(lib_grad, library=True) - lib_f_device
+        calls = {
+            "bias_gelu_fwd": (lambda: bg.bias_gelu_fwd(y, b),
+                              lambda: bg.bias_gelu_fwd_plain(y, b),
+                              lib_f, lib_f_device, err_f),
+            "bias_gelu_bwd": (lambda: bg.bias_gelu_bwd(dg, y, b),
+                              lambda: bg.bias_gelu_bwd_plain(dg, y, b),
+                              lib_b, lib_b_device, err_b)}
+        for name, (kernel, plain, t_lib, t_lib_device, err) in calls.items():
+            t_plain = median_ms(plain)
+            t_plain_device = device_ms(plain, library=True)
+            t_kernel = median_ms(kernel)
+            t_device = device_ms(kernel, library=name.endswith("bwd"))
+            bound = mlp_bound_ms(name, rows, width)
+            print(f"time {name} bf16 {label}: kernel {t_kernel:.4f} ms "
+                  f"(device {t_device:.4f} ms), plain {t_plain:.4f} ms "
+                  f"(device {t_plain_device:.4f} ms), library {t_lib:.4f} "
+                  f"ms (device {t_lib_device:.4f} ms), bound {bound:.4f} ms "
+                  f"(bytes; the device time reaches {bound / t_device:.1%} "
+                  f"of it) [{smi}]", flush=True)
+            row = {"ms": t_kernel, "device_ms": t_device, "plain_ms": t_plain,
+                   "plain_device_ms": t_plain_device, "library_ms": t_lib,
+                   "library_device_ms": t_lib_device, "bound_ms": bound,
+                   "bound_by": "bytes", "max_abs_err": err,
+                   "dtype": "bfloat16", "shape": [rows, width]}
+            if name.endswith("bwd"):
+                row["bwd_chunks"] = chunks
+            if name in out:
+                out[name].setdefault("other_shapes", []).append(row)
+            else:
+                out[name] = row
+        del y, b, dg, yl, bl
+    return out
+
+
 def serving_setup(tmp: Path) -> tuple:
     """The serving model of phases 4 and 12: ``configs/eval/egomcq.json`` at
     full width in bf16 on seeded random weights, with a vocabulary in
@@ -1418,7 +1594,8 @@ def phase_train(ca, smi: str) -> tuple:
     per_step = {name: 12 for name in KERNELS}
     per_step["space_attention_bwd"] = 11
     per_step.update(ln_per_step(cfg.video.depth, cfg.text.n_layers))
-    for name in (*KERNELS, *LN_KERNELS):
+    per_step.update(mlp_per_step(cfg.video.depth, cfg.text.n_layers))
+    for name in (*KERNELS, *LN_KERNELS, *MLP_KERNELS):
         check(counts[name] == per_step[name] * n_steps,
               f"{name}: {counts[name]} launches, expected "
               f"{per_step[name] * n_steps}")
@@ -3541,14 +3718,16 @@ def vitl_step_counts(remat, n_micro: int = 1) -> dict:
     layers): each micro-batch's forward with grad runs K1-fwd / K2-fwd once
     a block, and again in the backward under 'attn' or 'block'; GradCache
     first embeds every micro-batch without grad; the backward runs K2-bwd
-    once a block and K1-bwd in all but the last block."""
+    once a block and K1-bwd in all but the last block; K3 and K7 as
+    ``ln_per_step`` and ``mlp_per_step`` count them."""
     mode = {True: "block", False: "none"}.get(remat, remat)
     per = 24 * (2 if mode in ("attn", "block") else 1)
     fwd = n_micro * per + (n_micro * 24 if n_micro > 1 else 0)
     return {"space_attention_fwd": fwd, "time_attention_fwd": fwd,
             "space_attention_bwd": 23 * n_micro,
             "time_attention_bwd": 24 * n_micro,
-            **ln_per_step(24, 6, mode, n_micro)}
+            **ln_per_step(24, 6, mode, n_micro),
+            **mlp_per_step(24, 6, mode, n_micro)}
 
 
 def big_cosine(a, b, chunk: int = 1 << 26) -> float:
@@ -4136,9 +4315,10 @@ def split_layers(model, m: int = 2) -> None:
             continue
         qkv = name.endswith(".qkv")
 
-        def forward(x, mod=mod, d=d, qkv=qkv):
+        def forward(x, mod=mod, d=d, qkv=qkv, bias=True):
             w = mod.weight.to(x.dtype)
-            b = None if mod.bias is None else mod.bias.to(x.dtype)
+            b = (None if mod.bias is None or not bias
+                 else mod.bias.to(x.dtype))
             if d == 1:
                 y = sum((xs.float() @ ws.float().t()) for xs, ws in
                         zip(x.chunk(m, -1), w.chunk(m, 1))).to(x.dtype)
@@ -4153,6 +4333,8 @@ def split_layers(model, m: int = 2) -> None:
             return torch.cat(thirds, -1).flatten(-2)
 
         mod.forward = forward
+        # the MLP's fc1 / lin1 adds its bias in K7 (``Linear.product``)
+        mod.product = functools.partial(forward, bias=False)
 
 
 def mesh_initial(arch: dict, device) -> dict:
@@ -4922,6 +5104,8 @@ def main() -> None:
     lap("phase 3, 3b")
     rows.update(phase_layer_norm(smi))
     lap("phase 3c")
+    rows.update(phase_bias_gelu(smi))
+    lap("phase 3d")
     serve_counts, _ = phase_slice(ca, smi)
     lap("phase 4")
     train_counts, ref = phase_train(ca, smi)
@@ -4968,7 +5152,8 @@ def main() -> None:
                                      "aot_serving": aot_counts[name],
                                      "mesh_sp_rank0": mesh_counts[name]},
                 **rows[name]}
-               for name, replaces in {**KERNELS, **LN_KERNELS}.items()]
+               for name, replaces in {**KERNELS, **LN_KERNELS,
+                                      **MLP_KERNELS}.items()]
     kernels += [{"name": name, "route": "cuda", **sources(name),
                  "replaces": replaces, "launches": hs_counts[name],
                  "launches_by_path": {"head_split_op": hs_counts[name],

@@ -29,14 +29,19 @@ class Linear(nn.Linear):
     """``nn.Linear`` computing ``linear``: float32 parameters, the matmul
     and the bias add in the activation dtype.  ``reduce(x, weight)``, set
     on a row-parallel layer (``core/tp.py``), is the product summed over
-    the model group; the bias is added after it."""
+    the model group; the bias is added after it.  ``product(x)`` is the
+    layer without its bias, for a caller that adds the bias itself (the
+    MLP's ``kernels.bias_gelu``)."""
 
     reduce = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def product(self, x: torch.Tensor) -> torch.Tensor:
         if self.reduce is None:
-            return linear(x, self.weight, self.bias)
-        y = self.reduce(x, self.weight)
+            return F.linear(x, self.weight.to(x.dtype))
+        return self.reduce(x, self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.product(x)
         return y if self.bias is None else y + self.bias.to(x.dtype)
 
 

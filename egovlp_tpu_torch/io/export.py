@@ -52,9 +52,9 @@ import torch
 from torch import nn
 
 from egovlp_tpu_torch.data.transforms import eval_resize
-# defines the K3 ops and, through cuda_attention, the attention kernels'
-# ops: a saved program that calls them loads only after this import
-from egovlp_tpu_torch.kernels import fused_ln  # noqa: F401
+# define the K7 and K3 ops and, through cuda_attention, the attention
+# kernels' ops: a saved program that calls them loads only after this import
+from egovlp_tpu_torch.kernels import bias_gelu, fused_ln  # noqa: F401
 
 MANIFEST = "manifest.json"
 FORMAT = "egovlp_tpu_torch.embedder/1"

@@ -25,7 +25,8 @@ SOURCES = ("space_attention_fwd.cu", "time_attention_fwd.cu",
            "space_attention_bwd.cu", "time_attention_bwd.cu",
            "grouped_attention_fwd.cu", "grouped_attention_bwd.cu",
            "time_attention_hs_fwd.cu", "time_attention_hs_bwd.cu",
-           "layer_norm_fwd.cu", "layer_norm_bwd.cu")
+           "layer_norm_fwd.cu", "layer_norm_bwd.cu",
+           "bias_gelu_fwd.cu", "bias_gelu_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -46,6 +47,12 @@ _K5_BWD = ([_P] * 11 + [_I] * 5 + [_I, _I, _P], _I)
 _LN_FWD = ([_P] * 8 + [_I, _I, _I, ctypes.c_float, _I, _I, _P], _I)
 _LN_BWD = ([_P] * 13 + [_I] * 4 + [_I, _I, _P], _I)
 _LN_BWD_GRID = ([_I] * 4 + [ctypes.POINTER(_I)], _I)
+# bias add + exact GELU (K7): y, bias, g; rows, width, s / dg, y, bias, dy,
+# part, dbias; rows, width, part_rows, s, ks; and the backward's chunks
+# at (rows, width, dtype, device)
+_BG_FWD = ([_P] * 3 + [_I] * 2 + [ctypes.c_float, _I, _I, _P], _I)
+_BG_BWD = ([_P] * 6 + [_I] * 3 + [ctypes.c_float] * 2 + [_I, _I, _P], _I)
+_BG_BWD_CHUNKS = ([_I] * 4 + [ctypes.POINTER(_I)], _I)
 # (L, hd) -> registers, local bytes and shared memory of a bf16
 # tensor-core kernel; (F, dtype) -> the same of a K2 or K5 streaming
 # instantiation
@@ -74,6 +81,9 @@ _SIGNATURES = {
     "egovlp_layer_norm_bwd_grid": _LN_BWD_GRID,
     "egovlp_layer_norm_fwd_attributes": _LN_ATTRIBUTES,
     "egovlp_layer_norm_bwd_attributes": _LN_ATTRIBUTES,
+    "egovlp_bias_gelu_fwd": _BG_FWD,
+    "egovlp_bias_gelu_bwd": _BG_BWD,
+    "egovlp_bias_gelu_bwd_chunks": _BG_BWD_CHUNKS,
     "egovlp_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

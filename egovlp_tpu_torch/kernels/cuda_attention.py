@@ -62,7 +62,9 @@ launches = {"space_attention_fwd": 0, "time_attention_fwd": 0,
             "grouped_attention_fwd": 0, "grouped_attention_bwd": 0,
             "time_attention_hs_fwd": 0, "time_attention_hs_bwd": 0,
             # K3, the LayerNorm kernels of ``kernels/fused_ln.py``
-            "layer_norm_fwd": 0, "layer_norm_bwd": 0}
+            "layer_norm_fwd": 0, "layer_norm_bwd": 0,
+            # K7, the bias add + GELU kernels of ``kernels/bias_gelu.py``
+            "bias_gelu_fwd": 0, "bias_gelu_bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -98,14 +100,16 @@ def _check(q, k, v, cls_k, cls_v, heads: int, do=None) -> None:
 def _launch(name: str, inputs, outputs, args) -> None:
     """Launch kernel ``name`` on the inputs' device and current stream over
     preallocated ``outputs``, with the scalar ``args`` (the shape, then the
-    kernel's own scalars, in the C signature's order), or raise."""
+    kernel's own scalars, in the C signature's order), or raise.  A
+    ``None`` input or output is a null pointer."""
     q = inputs[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     lib = load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = getattr(lib, f"egovlp_{name}")(
-        *(t.data_ptr() for t in (*inputs, *outputs)), *args,
+        *(None if t is None else t.data_ptr() for t in (*inputs, *outputs)),
+        *args,
         _DTYPE_CODES[q.dtype], q.device.index, stream)
     if err != 0:
         msg = lib.egovlp_cuda_error_string(err).decode()

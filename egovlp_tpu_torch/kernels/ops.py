@@ -1,8 +1,9 @@
 """The hand-written kernels as operators the PyTorch dispatcher knows.
 
 Every kernel wrapper of ``cuda_attention.py`` (K1, K2, K4, K5, forward
-and backward) and ``fused_ln.py`` (K3, forward and backward, on one
-tensor and on a CLS + patch pair) is defined as an op
+and backward), ``fused_ln.py`` (K3, forward and backward, on one tensor
+and on a CLS + patch pair) and ``bias_gelu.py`` (K7, forward and
+backward) is defined as an op
 ``torch.ops.egovlp_torch.<name>`` with three implementations:
 
 * ``CUDA``: the wrapper's launcher, which launches the kernel on the
@@ -21,9 +22,9 @@ The ops are defined with ``torch.library.Library`` (``define`` / ``impl``
 / ``register_fake``) rather than ``torch.library.custom_op``: both go
 through the dispatcher, but ``custom_op`` adds a Python wrapper and an
 autograd registration to every call (``PERF.md``, section 6, holds the
-cost of each on the card).  Importing ``cuda_attention`` or ``fused_ln``
-defines their ops; a saved ``torch.export`` program that calls them needs
-that import before ``torch.export.load``.
+cost of each on the card).  Importing ``cuda_attention``, ``fused_ln`` or
+``bias_gelu`` defines their ops; a saved ``torch.export`` program that
+calls them needs that import before ``torch.export.load``.
 """
 
 from __future__ import annotations

@@ -20,8 +20,9 @@ import dataclasses
 import torch
 from torch import nn
 
-from egovlp_tpu_torch.core.precision import Linear, gelu
+from egovlp_tpu_torch.core.precision import Linear
 from egovlp_tpu_torch.core.tp import column_linear, enter_columns
+from egovlp_tpu_torch.kernels.bias_gelu import bias_gelu
 from egovlp_tpu_torch.kernels.fused_ln import FusedLayerNorm
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -100,10 +101,11 @@ class FFN(nn.Module):
         self.lin2 = Linear(cfg.hidden_dim, cfg.dim, device=device)
 
     def forward(self, x):
+        # lin1's bias add and the GELU are one kernel each way (K7)
         if self.tp_group is None:
-            return self.lin2(gelu(self.lin1(x)))
+            return self.lin2(bias_gelu(self.lin1.product(x), self.lin1.bias))
         h = column_linear(enter_columns(x, self.tp_group), self.lin1, x.dtype)
-        return self.lin2(gelu(h))
+        return self.lin2(bias_gelu(h, None))
 
 
 class TransformerBlock(nn.Module):

@@ -71,12 +71,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from egovlp_tpu_torch.core import sp as seq
-from egovlp_tpu_torch.core.precision import Linear, gelu, linear
+from egovlp_tpu_torch.core.precision import Linear, linear
 from egovlp_tpu_torch.core.tp import (
     column_linear,
     copy_to_model,
     enter_columns,
 )
+from egovlp_tpu_torch.kernels.bias_gelu import bias_gelu
 from egovlp_tpu_torch.kernels.cuda_attention import direct
 from egovlp_tpu_torch.kernels.divided_attention import (
     _cls_row_parts,
@@ -150,10 +151,11 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden_dim, dim, device=device)
 
     def forward(self, x):
+        # fc1's bias add and the GELU are one kernel each way (K7)
         if self.tp_group is None:
-            return self.fc2(gelu(self.fc1(x)))
+            return self.fc2(bias_gelu(self.fc1.product(x), self.fc1.bias))
         h = column_linear(enter_columns(x, self.tp_group), self.fc1, x.dtype)
-        return self.fc2(gelu(h))
+        return self.fc2(bias_gelu(h, None))
 
 
 def _projections(xc, xp, weight, bias):

@@ -1,12 +1,13 @@
 """The kernels as registered ops, and the AOT serving artifact (CPU).
 
-* every one of the twelve ops (K1, K2, K4, K5 and K3, forward and
+* every one of the fourteen ops (K1, K2, K4, K5, K3 and K7, forward and
   backward, and K3's CLS + patch pair each way) passes
   ``torch.library.opcheck`` on CPU tensors, and its CPU implementation
   equals its plain twin bit for bit;
 * ``torch.export`` of a two-block video tower holds one
   ``egovlp_torch.space_attention_fwd`` and one ``time_attention_fwd``
-  node a block, three ``layer_norm_pair_fwd`` nodes a block and one
+  node a block, three ``layer_norm_pair_fwd`` nodes a block, two
+  ``bias_gelu_fwd`` nodes a block (the MLP's CLS and patch calls) and one
   ``layer_norm_fwd`` (the final norm);
 * the artifact of a tiny dual encoder (D 64, two blocks, DistilBERT's
   vocabulary of 30,522 so that the weights are real bytes) at buckets
@@ -50,8 +51,8 @@ from egovlp_tpu.models import (
 from egovlp_tpu.models.convert import save_torch_checkpoint
 from egovlp_tpu_torch.data.text import WordPieceTokenizer
 from egovlp_tpu_torch.io.export import ExportedEmbedder, export_embedder
+from egovlp_tpu_torch.kernels import bias_gelu, fused_ln
 from egovlp_tpu_torch.kernels import cuda_attention as ca
-from egovlp_tpu_torch.kernels import fused_ln
 from egovlp_tpu_torch.models import (
     DualEncoder,
     DualEncoderConfig,
@@ -121,6 +122,12 @@ def op_cases():
     cases["layer_norm_pair_bwd"] = (
         (xc, xp, scale, mu_c, rstd_c, mu_p, rstd_p, dy[:2].reshape(2, 1, 16),
          dy[2:5]), lambda a: fused_ln.layer_norm_pair_bwd_plain(*a))
+    # K7, the MLP's bias add + GELU: y [7, 16] bf16 and a float32 bias
+    y, dg = x.bfloat16(), dy.bfloat16()
+    cases["bias_gelu_fwd"] = ((y, bias),
+                              lambda a: bias_gelu.bias_gelu_fwd_plain(*a))
+    cases["bias_gelu_bwd"] = ((dg, y, bias),
+                              lambda a: bias_gelu.bias_gelu_bwd_plain(*a))
     return cases
 
 
@@ -128,11 +135,12 @@ OP_CASES = op_cases()
 
 
 def test_ten_ops():
-    # ten kernel ops, and K3's pair (CLS + patch in one launch) each way
+    # ten kernel ops, K3's pair (CLS + patch in one launch) and K7 (the
+    # MLP's bias add + GELU) each way: fourteen
     assert sorted(OP_CASES) == sorted(
         f"{k}_{d}" for k in ("space_attention", "time_attention",
                              "grouped_attention", "time_attention_hs",
-                             "layer_norm", "layer_norm_pair")
+                             "layer_norm", "layer_norm_pair", "bias_gelu")
         for d in ("fwd", "bwd"))
 
 
@@ -149,6 +157,8 @@ def test_cpu_op_is_the_plain_twin(name):
     want = plain(args)
     if name.endswith("fwd") and not name.startswith("layer_norm"):
         got, want = (got,), (want,)
+    elif name == "bias_gelu_bwd":  # (dy, dbias), as the twin's
+        pass
     elif name == "layer_norm_fwd":
         got = (got[0], *got[1].unbind(0))
     elif name == "layer_norm_pair_fwd":
@@ -190,6 +200,9 @@ def test_exported_tower_holds_one_node_a_kernel_call():
     assert targets.count("egovlp_torch.layer_norm_pair_fwd.default") == \
         3 * depth
     assert targets.count("egovlp_torch.layer_norm_fwd.default") == 1
+    # a block's MLP runs on the CLS part and on the patch part: one K7
+    # node each
+    assert targets.count("egovlp_torch.bias_gelu_fwd.default") == 2 * depth
     assert not [t for t in targets if "bwd" in t]
 
 
